@@ -9,11 +9,15 @@ Phases (any failure exits non-zero):
                ptxas' register / shared-memory report;
   2. kernels — call each kernel's wrapper on the inputs the render path
                gives it (trained assets, 16384 rays from the synthetic val
-               cameras) and hold it against its plain PyTorch version:
-               raw outputs within atol/rtol 2e-2, composited rgb within
-               3e-2, except a 1e-5 share (bf16 rounding flips, see
+               cameras) and on the inputs one full-width train step gives it
+               (the static and the fine sweep forward and backward, 1536
+               rays of a train view), and hold it against its plain PyTorch
+               version: raw outputs within atol/rtol 2e-2, composited rgb
+               within 3e-2, except a 1e-5 share (bf16 rounding flips, see
                FLIP_SHARE) that must stay within 10x those tolerances;
-               time kernel and plain version with CUDA events;
+               gradients within 3e-2 x each packed entry's largest
+               magnitude (TOL_GRAD; the per-ray d_dpt under the FLIP_SHARE
+               rule); time kernel and plain version with CUDA events;
   3. e2e     — save assets/nerfh_synthetic_301.npz as a checkpoint and run
                the port's stage-1 CLI with --render_test at the shipped
                full-width config; the coarse_sigma_t and fine_raw_t launch
@@ -22,7 +26,14 @@ Phases (any failure exits non-zero):
                by tests/test_torch_port_render.py);
   4. render  — bench-style throughput: 2^20 rays from the val cameras in
                16384-ray chunks, under the exact-union schedule and the
-               culled fused schedule (fine_composite_t must launch).
+               culled fused schedule (fine_composite_t must launch);
+  5. train   — the port's stage-1 CLI trains the shipped full-width config
+               from a seeded init on the synthetic scene for TRAIN_EPOCHS;
+               the step must be the kernel step, every step must launch
+               fine_raw_t and raw_bwd_t twice each, the loss must be finite
+               and fall, and the final val PSNR must be within
+               TRAIN_PSNR_TOL_DB of the JAX package's run (JAX_TRAIN_VAL_PSNR).
+               Prints train steps/s and where a step's time goes.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.
 """
@@ -55,17 +66,35 @@ TOL_COMP = 3e-2
 # Even those elements must stay within FLIP_CAP times atol + rtol |plain|.
 FLIP_SHARE = 1e-5
 FLIP_CAP = 10.0
+# Gradients of raw_bwd_t against raw_bwd_plain: 3e-2 of each packed entry's
+# largest magnitude. Both round the cotangents to bf16, so a ReLU mask or
+# bf16 rounding flip (see FLIP_SHARE) moves a term, and the kernel sums over
+# points in another order (WMMA tiles, per-block slabs).
+TOL_GRAD = 3e-2
+# Val PSNR of the JAX package's stage-1 run with the flags of phase_train
+# (seed 0, float32 plain train step on the CPU), from
+#   JAX_PLATFORMS=cpu python run_nerf.py --dataset_type synthetic --NeRFH \
+#     --encode_hist --basedir <dir> --expname nerfh --epochs 20 \
+#     --i_weights 20 --i_testset 20
+# (260 s on the CPU). Two repeats gave 12.827 and 12.579 dB: the epoch order
+# is unseeded there, a 0.25 dB spread. The port draws other init and sample
+# streams, hence the 1 dB tolerance.
+JAX_TRAIN_VAL_PSNR = 12.598
+TRAIN_PSNR_TOL_DB = 1.0
+TRAIN_EPOCHS = 20
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (data sheet)
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
 REPLACES = {
     "coarse_sigma_t": "dfnet_tpu/ops/nerf_kernels.py:530",
     "fine_raw_t": "dfnet_tpu/ops/nerf_kernels.py:566",
     "fine_composite_t": "dfnet_tpu/ops/nerf_kernels.py:1177",
+    "raw_bwd_t": "dfnet_tpu/ops/nerf_kernels.py:758",
 }
 SOURCES = {
     "coarse_sigma_t": "dfnet_tpu_torch/ops/csrc/coarse_sigma.cu",
     "fine_raw_t": "dfnet_tpu_torch/ops/csrc/fine_raw.cu",
     "fine_composite_t": "dfnet_tpu_torch/ops/csrc/fine_composite.cu",
+    "raw_bwd_t": "dfnet_tpu_torch/ops/csrc/raw_bwd.cu",
 }
 
 
@@ -128,30 +157,51 @@ def val_rays(n: int, device):
             scene)
 
 
-def capture(fast, settings, ro, rd, hist, **kw):
-    """Run render_rays_fast once; return the arguments each kernel
-    wrapper was called with (the main path's inputs)."""
+def spy_on(names, run):
+    """Run run() with the named wrappers of ops/nerf_kernels.py wrapped;
+    return {name: [(args, kwargs), ...]} of every call (the main path's
+    inputs), in call order."""
     from dfnet_tpu_torch.ops import nerf_kernels as nk
-    from dfnet_tpu_torch.render.fast import render_rays_fast
 
-    names = ("coarse_sigma_t", "fine_raw_t", "fine_composite_t")
     orig = {n: getattr(nk, n) for n in names}
-    calls = {}
+    calls = {n: [] for n in names}
 
     def spy(name):
         def f(*a, **k):
-            calls[name] = (a, k)
+            calls[name].append((a, k))
             return orig[name](*a, **k)
         return f
 
     try:
         for n in names:
             setattr(nk, n, spy(n))
-        render_rays_fast(fast, ro, rd, hist, settings, **kw)
+        run()
     finally:
         for n, f in orig.items():
             setattr(nk, n, f)
     return calls
+
+
+def capture(fast, settings, ro, rd, hist, **kw):
+    """Run render_rays_fast once; the arguments of each kernel wrapper."""
+    from dfnet_tpu_torch.render.fast import render_rays_fast
+
+    calls = spy_on(("coarse_sigma_t", "fine_raw_t", "fine_composite_t"),
+                   lambda: render_rays_fast(fast, ro, rd, hist, settings, **kw))
+    return {n: c[-1] for n, c in calls.items() if c}
+
+
+def capture_train_step(trainer):
+    """Run one train step; the arguments of its fine_raw_t and raw_bwd_t
+    calls, keyed by the sweep ("static" coarse, "fine")."""
+    calls = spy_on(("fine_raw_t", "raw_bwd_t"),
+                   lambda: trainer.train_step(0, trainer.cfg.lrate))
+    out = {}
+    for name, cs in calls.items():
+        for a, k in cs:
+            spec = a[-1]
+            out[(name, "static" if spec.static else "fine")] = (a, k)
+    return out
 
 
 def work(name: str, args) -> tuple:
@@ -159,7 +209,7 @@ def work(name: str, args) -> tuple:
     matmul flops at the real (unpadded) widths, each input read once and
     each output written once."""
     packed, ro = args[0], args[1]
-    spec = args[3] if name == "coarse_sigma_t" else args[5]
+    spec = args[3] if name == "coarse_sigma_t" else args[-1]
     N = ro.shape[0]
     S = args[4] if name == "coarse_sigma_t" else args[3].shape[1]
     W, half, in0 = spec.W, spec.W // 2, 6 * spec.F + 3
@@ -167,24 +217,140 @@ def work(name: str, args) -> tuple:
     wbytes = packed["w"].numel() * 2 + packed["b"].numel() * 4
     if name == "coarse_sigma_t":
         return 2 * (per + W) * N * S, 24 * N + wbytes + 4 * N * S
-    per += W * W + 3 * half * half + 8 * half + W      # w_dt, transient, heads
-    inputs = 24 * N + 4 * N * S + 4 * N * W + wbytes
-    out = 36 * N * S if name == "fine_raw_t" else 32 * N
+    if spec.static:
+        per += half * W + 3 * half + W                 # dir half of w_dt, heads
+    else:
+        per += W * W + 3 * half * half + 8 * half + W  # w_dt, transient, heads
+    inputs = 24 * N + 4 * N * S + 4 * N * spec.Wd + wbytes
+    if name == "raw_bwd_t":
+        # recompute + input grads + weight grads; no input grad into x0
+        macs = 3 * per - in0 * W * (2 if spec.skip > 0 else 1)
+        return (2 * macs * N * S,
+                inputs + 4 * spec.n_raw * N * S + wbytes + 4 * N * spec.Wd)
+    out = {"fine_raw_t": 4 * spec.n_raw * N * S, "fine_composite_t": 32 * N}[name]
     return 2 * per * N * S, inputs + out
+
+
+def compare_rows(got, want, tol):
+    """Kernel rows against the plain version: FLIP_SHARE may fall outside
+    atol/rtol `tol`, none by more than FLIP_CAP times."""
+    import torch
+
+    err = (got - want).abs()
+    ratio = err / (tol + tol * want.abs())    # > 1: outside atol/rtol
+    bad = int((ratio > 1).sum())
+    worst = int(ratio.argmax())
+    info = dict(max_abs_err=float(err.max()), out_of_tol=bad,
+                worst=dict(row=worst // (err.numel() // err.shape[0]),
+                           ratio=float(ratio.max()),
+                           kernel=float(got.reshape(-1)[worst]),
+                           plain=float(want.reshape(-1)[worst])))
+    ok = (bad <= FLIP_SHARE * err.numel() and info["worst"]["ratio"] <= FLIP_CAP
+          and bool(torch.isfinite(got).all()))
+    return ok, info
+
+
+def compare_grads(got, want, spec, S):
+    """raw_bwd_t's (d_w, d_b, d_dpt) against raw_bwd_plain's: each packed
+    weight and bias entry within TOL_GRAD of its largest magnitude; d_dpt
+    per element within TOL_GRAD of its largest magnitude, but for a share
+    S x FLIP_SHARE within FLIP_CAP times that. A d_dpt element sums the S
+    samples of one ray, so it takes the ReLU mask flips (an activation at a
+    rounding midpoint, see FLIP_SHARE) of S points, and one flip moves it
+    by a few percent; the weight grads sum ~10^5 points and average such
+    flips out."""
+    import torch
+
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+
+    def named(r):
+        return nk.unpack({"w": r[0], "b": r[1]}, spec)
+
+    g, w = named(got), named(want)
+    rel, max_abs, ok = {}, 0.0, True
+    for k in w:
+        a, b = g[k].float(), w[k].float()
+        scale = max(a.abs().max().item(), b.abs().max().item(), 1e-12)
+        e = (a - b).abs().max().item()
+        rel[k] = e / scale
+        max_abs = max(max_abs, e)
+        ok = ok and bool(torch.isfinite(a).all()) and e <= TOL_GRAD * scale
+    worst = max(rel, key=rel.get)
+    a, b = got[2], want[2]
+    scale = max(a.abs().max().item(), b.abs().max().item(), 1e-12)
+    ratio = (a - b).abs() / (TOL_GRAD * scale)
+    flips = int((ratio > 1).sum())
+    max_abs = max(max_abs, (a - b).abs().max().item())
+    ok = (ok and bool(torch.isfinite(a).all()) and flips <= S * FLIP_SHARE * a.numel()
+          and ratio.max().item() <= FLIP_CAP)
+    return ok, dict(max_abs_err=max_abs, worst=dict(entry=worst, rel=rel[worst]),
+                    d_dpt=dict(rel=ratio.max().item() * TOL_GRAD, out_of_tol=flips,
+                               n=a.numel()))
+
+
+def measure(name, a, k, asset, sched):
+    """One kernel call on the card against its plain version: agreement,
+    CUDA-event times, the bound. Raises SystemExit on disagreement."""
+    import torch
+
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+
+    kern = getattr(nk, name)
+    plain = {"coarse_sigma_t": nk.coarse_sigma_plain, "fine_raw_t": nk.fine_raw_plain,
+             "fine_composite_t": nk.fine_composite_plain,
+             "raw_bwd_t": nk.raw_bwd_plain}[name]
+    spec = a[3] if name == "coarse_sigma_t" else a[-1]
+    S = a[4] if name == "coarse_sigma_t" else a[3].shape[1]
+    with torch.no_grad():
+        got = kern(*a, **k)
+        torch.cuda.synchronize()
+        want = plain(*a, **k)
+        if name == "raw_bwd_t":
+            ok, info = compare_grads(got, want, spec, S)
+        else:
+            ok, info = compare_rows(got, want, TOL_COMP if name == "fine_composite_t"
+                                    else TOL_RAW)
+        ms = cuda_ms(lambda: kern(*a, **k), reps=7)
+        plain_ms = cuda_ms(lambda: plain(*a, **k), reps=3, warmup=1)
+    flops, nbytes = work(name, a)
+    bound = max(flops / PEAK_BF16, nbytes / HBM_BYTES_S) * 1e3
+    bound_by = "operations" if flops / PEAK_BF16 >= nbytes / HBM_BYTES_S else "bytes"
+    mode = "static" if spec.static else ("fine" if spec.fine else "sigma")
+    shape = f"N={a[1].shape[0]} S={S} D={spec.D} W={spec.W} F={spec.F} {mode}"
+    case = dict(name=name, asset=asset, schedule=sched, shape=shape, **info, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+    log(f"[kernels] {name:16s} {asset:30s} {sched:10s} {shape}: "
+        f"{json.dumps(info)} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={bound:.4f} ({bound_by})")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version ({asset}, "
+                         f"{sched}, {shape}): {info}")
+    return case
+
+
+def train_trainer(width: int, device, scene=None):
+    """A NeRFTrainer for the shipped config at this width on the stage-1
+    synthetic scene (made here unless given)."""
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.loader import load_scene
+    from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+
+    cfg = parse_args(["--NeRFH", "--encode_hist", "--dataset_type", "synthetic",
+                      "--netwidth", str(width), "--netwidth_fine", str(width),
+                      "--device", str(device)])
+    return NeRFTrainer(cfg, scene or load_scene(cfg), device=device)
 
 
 def phase_kernels(device):
     import torch
 
     from dfnet_tpu_torch.models.factory import render_settings
-    from dfnet_tpu_torch.ops import nerf_kernels as nk
     from dfnet_tpu_torch.render.fast import FastNeRFH
+    from dfnet_tpu_torch.training.checkpoints import load_pytree
 
-    plain = {"coarse_sigma_t": nk.coarse_sigma_plain,
-             "fine_raw_t": nk.fine_raw_plain,
-             "fine_composite_t": nk.fine_composite_plain}
     ro, rd, scene = val_rays(CHUNK, device)
     hist = torch.zeros((1, 10), dtype=torch.int32, device=device)
+    train_scene = None
     cases = []
     for asset, width in (("nerfh_synthetic_301.npz", 128),
                          ("nerfh_synthetic_301_w256.npz", 256)):
@@ -195,49 +361,20 @@ def phase_kernels(device):
             runs.append(("coarse-net", dict(), False))
         for sched, kw, use_prop in runs:
             fast = FastNeRFH.pack(params, model, use_proposal=use_prop)
-            calls = capture(fast, settings, ro, rd, hist, **kw)
-            for name, (a, k) in calls.items():
+            for name, (a, k) in capture(fast, settings, ro, rd, hist, **kw).items():
                 if sched == "coarse-net" and name != "coarse_sigma_t":
                     continue
-                kern = getattr(nk, name)
-                got = kern(*a, **k)
-                torch.cuda.synchronize()
-                want = plain[name](*a, **k)
-                tol = TOL_COMP if name == "fine_composite_t" else TOL_RAW
-                err = (got - want).abs()
-                ratio = err / (tol + tol * want.abs())    # > 1: outside atol/rtol
-                bad = (ratio > 1).sum().item()
-                finite = bool(torch.isfinite(got).all())
-                ms = cuda_ms(lambda: kern(*a, **k), reps=7)
-                plain_ms = cuda_ms(lambda: plain[name](*a, **k), reps=3, warmup=1)
-                flops, nbytes = work(name, a)
-                bound = max(flops / PEAK_BF16, nbytes / HBM_BYTES_S) * 1e3
-                bound_by = "operations" if flops / PEAK_BF16 >= nbytes / HBM_BYTES_S else "bytes"
-                spec = a[3] if name == "coarse_sigma_t" else a[5]
-                shape = (f"N={a[1].shape[0]} S={a[4] if name == 'coarse_sigma_t' else a[3].shape[1]} "
-                         f"D={spec.D} W={spec.W} F={spec.F}")
-                worst = int(ratio.argmax())
-                row = worst // (err.numel() // err.shape[0])
-                case = dict(name=name, asset=asset, schedule=sched, shape=shape,
-                            max_abs_err=float(err.max()), out_of_tol=int(bad),
-                            worst=dict(row=row, ratio=float(ratio.max()),
-                                       kernel=float(got.reshape(-1)[worst]),
-                                       plain=float(want.reshape(-1)[worst])),
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=bound_by)
-                cases.append(case)
-                log(f"[kernels] {name:16s} {asset:30s} {sched:10s} {shape}: "
-                    f"max_abs_err={case['max_abs_err']:.3e} out_of_tol={bad} "
-                    f"worst {case['worst']} ms={ms:.3f} plain_ms={plain_ms:.3f} "
-                    f"bound_ms={bound:.4f} ({bound_by})")
-                if (bad > FLIP_SHARE * err.numel() or case["worst"]["ratio"] > FLIP_CAP
-                        or not finite):
-                    raise SystemExit(f"{name} disagrees with its plain version "
-                                     f"({asset}, {sched}): {bad} elements out "
-                                     f"of atol/rtol {tol}, worst {case['worst']}, "
-                                     f"finite={finite}")
-                del got, want
+                cases.append(measure(name, a, k, asset, sched))
             torch.cuda.empty_cache()
+        # one train step (N_rand rays of a train view, perturb on) from the
+        # trained weights: both sweeps forward and backward
+        tr = train_trainer(width, device, train_scene)
+        train_scene = tr.scene
+        tr.load_params_tree(load_pytree(str(ROOT / "assets" / asset))[0])
+        for (name, sweep), (a, k) in capture_train_step(tr).items():
+            cases.append(measure(name, a, k, asset, f"train-{sweep}"))
+        del tr
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -309,6 +446,125 @@ def phase_render(device):
     return result
 
 
+def phase_train(device):
+    """Stage-1 training through the port's CLI at the shipped config."""
+    import torch
+
+    from dfnet_tpu_torch.cli.nerf import train
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+
+    epochs, trainers = [], []
+    orig = NeRFTrainer.train_epoch
+
+    def timed_epoch(self, epoch):
+        """Each epoch's host seconds and launches (train_epoch ends in a
+        host fetch of the loss, which waits for the card)."""
+        before = dict(nk.LAUNCHES)
+        t0 = time.perf_counter()
+        out = orig(self, epoch)
+        epochs.append(dict(epoch=epoch, seconds=time.perf_counter() - t0,
+                           steps=len(self.scene.train),
+                           launches={k: nk.LAUNCHES[k] - before[k] for k in before}))
+        if not trainers:
+            trainers.append(self)
+        return out
+
+    NeRFTrainer.train_epoch = timed_epoch
+    try:
+        with tempfile.TemporaryDirectory() as base:
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            psnr = train(["--dataset_type", "synthetic", "--NeRFH", "--encode_hist",
+                          "--basedir", base, "--expname", "nerfh",
+                          "--epochs", str(TRAIN_EPOCHS),
+                          "--i_weights", str(TRAIN_EPOCHS),
+                          "--i_testset", str(TRAIN_EPOCHS), "--device", str(device)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+            exp = Path(base) / "nerfh"
+            with open(exp / "metrics.jsonl") as fh:
+                loss = [json.loads(line)["loss"] for line in fh]
+            saved = (exp / f"{TRAIN_EPOCHS:06d}.npz").exists()
+    finally:
+        NeRFTrainer.train_epoch = orig
+    tr = trainers[0]
+    steps = sum(e["steps"] for e in epochs)
+    steady = epochs[1:]                      # epoch 0 loads the kernels
+    steps_per_s = sum(e["steps"] for e in steady) / sum(e["seconds"] for e in steady)
+    log(f"[train] {len(epochs)} epochs, {steps} steps in {wall:.2f} s (evals and "
+        f"checkpoint included); {steps_per_s:.2f} steps/s over epochs 1-"
+        f"{epochs[-1]['epoch']}; loss {loss[0]:.5f} -> {loss[-1]:.5f}; val PSNR "
+        f"{psnr:.4f} dB (JAX {JAX_TRAIN_VAL_PSNR}); launches {launches}")
+    if not tr.uses_fused_train:
+        raise SystemExit("the shipped config did not take the kernel train step")
+    for e in epochs:
+        for k in ("fine_raw_t", "raw_bwd_t"):
+            if e["launches"][k] != 2 * e["steps"]:
+                raise SystemExit(f"epoch {e['epoch']}: {k} launched "
+                                 f"{e['launches'][k]} times in {e['steps']} steps")
+    if not saved or not np.all(np.isfinite(loss)) or not (
+            np.mean(loss[-3:]) < np.mean(loss[:3])):
+        raise SystemExit(f"training did not save, or its loss is not finite and "
+                         f"falling: {loss}")
+    if not abs(psnr - JAX_TRAIN_VAL_PSNR) <= TRAIN_PSNR_TOL_DB:
+        raise SystemExit(f"trained val PSNR {psnr} is not within {TRAIN_PSNR_TOL_DB} "
+                         f"dB of the JAX package's {JAX_TRAIN_VAL_PSNR}")
+    return dict(steps=steps, steps_per_s=steps_per_s, wall_s=wall, val_psnr=psnr,
+                loss_first=loss[0], loss_last=loss[-1], launches=launches,
+                breakdown=step_breakdown(tr))
+
+
+def step_breakdown(tr, reps: int = 10):
+    """Where one train step's time goes, on the trained-from-scratch state:
+    the step (host clock around `reps` steps and a sync), each kernel call
+    of a step (CUDA events at its captured inputs), the Adam update and the
+    proposal loss forward + backward (CUDA events). The rest is torch glue:
+    sampling, packing, compositing, the NeRF-W loss and autograd."""
+    import torch
+
+    from dfnet_tpu_torch.models.losses import proposal_bound_loss
+    from dfnet_tpu_torch.models.nerfw import nerfw_apply_rays
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.render.fused_train import render_rays_train_fused
+    from dfnet_tpu_torch.render.volume import composite_nerfw
+
+    lr = tr.cfg.lrate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        tr.train_step(i % len(tr.scene.train), lr)
+    torch.cuda.synchronize()
+    out = {"step_ms": (time.perf_counter() - t0) * 1e3 / reps}
+    for (name, sweep), (a, k) in capture_train_step(tr).items():
+        out[f"{name}[{sweep}]_ms"] = cuda_ms(lambda: getattr(nk, name)(*a, **k), reps=5)
+    out["adam_ms"] = cuda_ms(lambda: tr.adam_update(lr), reps=5)
+
+    sc, m, p = tr.scene, tr.model, tr.params
+    from dfnet_tpu_torch.render.rays import get_rays
+
+    ro, rd = get_rays(sc.H, sc.W, sc.focal, tr._poses[0])
+    ro, rd = ro.reshape(-1, 3)[:tr.cfg.N_rand], rd.reshape(-1, 3)[:tr.cfg.N_rand]
+    hist = tr._hists[0][None].expand(ro.shape[0], -1)
+    with torch.no_grad():
+        r = render_rays_train_fused(p, m, ro, rd, hist, tr.settings, tr.gen)
+
+    def proposal():
+        z = r["z_vals"]
+        pts = ro[:, None, :] + rd[:, None, :] * z[..., None]
+        sig = nerfw_apply_rays(p["proposal"], m.cfg_proposal, m.embed_proposal(pts),
+                               sigma_only=True)
+        w = composite_nerfw(sig, z, output_transient=False, sigma_only=True)["weights"]
+        proposal_bound_loss(w, z, r["weights_fine"], r["z_all"]).backward()
+
+    out["proposal_loss_ms"] = cuda_ms(proposal, reps=5)
+    kern = sum(v for k, v in out.items() if k.startswith(("fine_raw_t", "raw_bwd_t")))
+    out["glue_ms"] = out["step_ms"] - kern - out["adam_ms"] - out["proposal_loss_ms"]
+    log(f"[train] step breakdown (ms): {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -338,25 +594,32 @@ def main() -> int:
     cases = phase_kernels(device)
     e2e_launches = phase_e2e(device)
     render = phase_render(device)
+    train_result = phase_train(device)
 
-    main_case = {"coarse_sigma_t": ("nerfh_synthetic_301.npz", "exact"),
-                 "fine_raw_t": ("nerfh_synthetic_301.npz", "exact"),
-                 "fine_composite_t": ("nerfh_synthetic_301.npz", "culled")}
-    path_launches = dict(e2e_launches)
-    path_launches["fine_composite_t"] = \
-        render["culled_fused"]["launches"]["fine_composite_t"]
+    # each kernel's row: its case on the main path it was ported for, and
+    # the launches of every main path, each counted from 0 over its run
+    main_case = {"coarse_sigma_t": ("nerfh_synthetic_301.npz", "exact", "render_test"),
+                 "fine_raw_t": ("nerfh_synthetic_301.npz", "exact", "render_test"),
+                 "fine_composite_t": ("nerfh_synthetic_301.npz", "culled",
+                                      "render_culled"),
+                 "raw_bwd_t": ("nerfh_synthetic_301.npz", "train-fine", "train")}
+    path_launches = {"render_test": e2e_launches,
+                     "render_culled": render["culled_fused"]["launches"],
+                     "train": train_result["launches"]}
     kernels = []
-    for name, (asset, sched) in main_case.items():
+    for name, (asset, sched, path) in main_case.items():
         c = next(c for c in cases if c["name"] == name and c["asset"] == asset
                  and c["schedule"] == sched)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": path_launches[name],
+            "replaces": REPLACES[name], "launches": path_launches[path][name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None, "shape": c["shape"],
+            "launches_by_path": {p: v[name] for p, v in path_launches.items()},
             "cases": [x for x in cases if x["name"] == name]})
     log(json.dumps({"render": {k: v["rays_per_s"] for k, v in render.items()}}))
+    log(json.dumps({"train": train_result}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

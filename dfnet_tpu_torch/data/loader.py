@@ -34,3 +34,8 @@ def _relabel_with_indices(scene: SceneData, fix_index: bool):
     tr_idx = np.zeros(n_tr, np.int32) if fix_index else np.arange(n_tr, dtype=np.int32)
     scene.train.hists = tr_idx[:, None]
     scene.val.hists = np.zeros((len(scene.val), 1), np.int32)
+
+
+def epoch_permutation(n: int, rng: np.random.Generator) -> np.ndarray:
+    """The order of one epoch's train images, from the caller's generator."""
+    return rng.permutation(n)

@@ -21,7 +21,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dfnet_tpu_torch"
-KERNEL_SOURCES = ("coarse_sigma", "fine_raw", "fine_composite")
+KERNEL_SOURCES = ("coarse_sigma", "fine_raw", "fine_composite", "raw_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -33,9 +33,12 @@ SIGNATURES = {
     "coarse_sigma": ("dfn_coarse_sigma",
                      [_P, _P, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "fine_raw": ("dfn_fine_raw",
-                 [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+                 [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
     "fine_composite": ("dfn_fine_composite",
                        [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    "raw_bwd": ("dfn_raw_bwd",
+                [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                 _P, _I, _I, _P, _I, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

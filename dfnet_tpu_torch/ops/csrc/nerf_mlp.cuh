@@ -17,9 +17,11 @@
 // to 16; see ops/nerf_kernels.py::_layout, which builds the same order):
 //   w0 (W, K0) | per trunk layer i in 1..D-1: skip ? [wx (W, K0), wh (W, W)]
 //   : (W, W) | coarse: w_sigma (W) | fine: w_dt (W, W), 3 x (W/2, W/2),
-//   heads (9, W).
+//   heads (9, W) | static: w_dt (W/2, W), heads (4, W).
 // Biases (float32): b_trunk (D, W) | coarse: b_sigma (1) | fine: b_dt (W),
-//   b_trans (3, W/2), b_heads (9).
+//   b_trans (3, W/2), b_heads (9) | static: b_dt (W/2), b_heads (4).
+// Heads rows: rgb 0:3 over d (columns 0:W/2), sigma 3 over h (0:W),
+// fine only: t-rgb 4:7, t-sigma 7, t-beta 8 over t (columns W/2:W).
 
 #pragma once
 
@@ -37,6 +39,7 @@ constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int PAD = 8;        // bf16 row padding: spreads banks, keeps 32 B alignment
 constexpr int N_RAW = 9;      // rgb 0:3, sigma 3, t-rgb 4:7, t-sigma 7, t-beta 8
+constexpr int N_STATIC = 4;   // static pack: rgb 0:3, sigma 3
 constexpr int N_COMP = 8;     // rgb 0:3, acc 3, static depth 4, static rgb 5:8
 constexpr int FLAT_TP = 64;   // points per block of the flat sweeps
 
@@ -239,6 +242,30 @@ __device__ inline void fine_tile(const Dims& dm, const Tile& t, const bf16* w,
     const bf16* x = c < 3 ? o + r * ldh : h + r * ldh + half;
     const bf16* wc = w_heads + (size_t)c * W + (c < 3 ? 0 : half);
     t.raw[idx] = dot_bf16(x, wc, half) + b_heads[c];
+  }
+  __syncthreads();
+}
+
+// Static sweep of a tile (the train-time coarse pass): trunk, sigma head
+// over h, the folded xyz_final . dir layer at W/2 outputs plus the per-ray
+// row dpt (N, W/2), rgb head over d; no transient chain. Leaves rows 0:4
+// of t.raw (TP, N_RAW).
+__device__ inline void static_tile(const Dims& dm, const Tile& t, const bf16* w,
+                                   const float* b, const float* dpt) {
+  const int W = dm.W, half = W / 2, ldh = W + PAD;
+  bf16* h = run_trunk(dm, t, w, b);
+  bf16* o = (h == t.hA) ? t.hB : t.hA;
+  const bf16* w_dt = w;
+  const bf16* w_heads = w_dt + (size_t)half * W;
+  const float* b_dt = b;
+  const float* b_heads = b_dt + half;
+  layer(h, ldh, W, w_dt, nullptr, 0, 0, nullptr, dm.TP, half, b_dt, dpt, half,
+        t.ray, o, ldh, t.scratch);
+  for (int idx = threadIdx.x; idx < dm.TP * N_STATIC; idx += blockDim.x) {
+    const int r = idx / N_STATIC, c = idx % N_STATIC;
+    t.raw[r * N_RAW + c] =
+        c == 3 ? dot_bf16(h + r * ldh, w_heads + 3 * W, W) + b_heads[3]
+               : dot_bf16(o + r * ldh, w_heads + (size_t)c * W, half) + b_heads[c];
   }
   __syncthreads();
 }

@@ -1,12 +1,16 @@
 """NeRF-H MLP sweep kernels for Hopper: packing, wrappers, plain versions.
 
-Port of the three kernels of dfnet_tpu/ops/nerf_kernels.py that the
-test-time render runs:
+Port of the kernels of dfnet_tpu/ops/nerf_kernels.py that the test-time
+render and the stage-1 train step run:
 
   coarse_sigma_t    <- nerf_kernels.py::coarse_sigma_t (_coarse_kernel_t)
-  fine_raw_t        <- nerf_kernels.py::fine_raw_t (_fine_kernel_t)
+  fine_raw_t        <- nerf_kernels.py::fine_raw_t (_fine_kernel_t), with
+                       the fine (NeRF-W) and the static (train-time coarse)
+                       packs
   fine_composite_t  <- nerf_kernels.py::fine_composite_t
                        (_fine_composite_kernel_t)
+  raw_bwd_t         <- nerf_kernels.py::raw_bwd_t (_bwd_kernel_t): the
+                       backward of fine_raw_t
 
 Each wrapper launches its hand-written CUDA kernel (`csrc/*.cu`, built by
 `ops/build.py`) for CUDA tensors and counts the launch in `LAUNCHES`; for
@@ -24,13 +28,16 @@ padding) is not carried over: tiles are point-major, point p belongs to
 ray p // S, the transient chain runs at its real width W/2 and ragged
 edges are masked in-kernel.
 
-Packed weights (`pack_coarse_t`, `pack_fine_t`): one flat bf16 tensor of
-(out, in) matrices with in-dims padded to 16, one flat float32 bias
-tensor and the PE frequencies, in the order `_layout` gives (the CUDA
-code walks the same order). Exact linear algebra of the JAX pack is
-kept: xyz_final folds into the [dir | trans_0] layer (w_dt), the per-ray
-halves of that layer come in as `per_ray_row`, and the skip layer is
-split [x0 | h].
+Packed weights (`pack_coarse_t`, `pack_fine_t`, `pack_static_t`): one
+flat bf16 tensor of (out, in) matrices with in-dims padded to 16, one
+flat float32 bias tensor and the PE frequencies, in the order `_layout`
+gives (the CUDA code walks the same order). Exact linear algebra of the
+JAX pack is kept: xyz_final folds into the [dir | trans_0] layer (w_dt;
+the dir half only in the static pack), the per-ray halves of that layer
+come in as `per_ray_row` / `per_ray_row_static`, and the skip layer is
+split [x0 | h]. The packs are differentiable (casts, cats, transposes,
+the fold matmul and slice writes), so gradients of the packed tensors
+reach the params tree through autograd.
 """
 
 from __future__ import annotations
@@ -46,10 +53,12 @@ from dfnet_tpu_torch.models.embedder import Embedder
 from dfnet_tpu_torch.models.nerfw import NeRFWConfig
 
 N_RAW = 9      # fine raw rows: rgb 0:3, sigma 3, t-rgb 4:7, t-sigma 7, t-beta 8
+N_STATIC = 4   # static raw rows: rgb 0:3, sigma 3
 N_COMP = 8     # composite rows: rgb 0:3, acc 3, static depth 4, static rgb 5:8
 
 # launches of each kernel, counted by its wrapper (reset_launches() zeroes)
-LAUNCHES = {"coarse_sigma_t": 0, "fine_raw_t": 0, "fine_composite_t": 0}
+LAUNCHES = {"coarse_sigma_t": 0, "fine_raw_t": 0, "fine_composite_t": 0,
+            "raw_bwd_t": 0}
 
 
 def reset_launches() -> None:
@@ -63,21 +72,38 @@ class KernelSpec:
     W: int          # trunk width
     skip: int       # trunk layer taking [x0 | h], -1 for none
     F: int          # PE frequencies
-    fine: bool      # full NeRF-W pack (else sigma-only)
+    fine: bool      # full NeRF-W pack
+    static: bool = False    # static pack (no transient chain); neither: sigma-only
+
+    def __post_init__(self):
+        if self.fine and self.static:
+            raise ValueError("a KernelSpec is fine, static or sigma-only")
 
     @property
     def K0(self) -> int:
         """PE feature count 6F+3, padded to a multiple of 16."""
         return -(-(6 * self.F + 3) // 16) * 16
 
+    @property
+    def n_raw(self) -> int:
+        """Rows of fine_raw_t's output for this pack."""
+        return N_RAW if self.fine else N_STATIC
+
+    @property
+    def Wd(self) -> int:
+        """Width of the [dir | trans_0] layer and of dpt: W (fine), W/2
+        (static: the dir half only)."""
+        return self.W if self.fine else self.W // 2
+
 
 def eff_skip(cfg: NeRFWConfig) -> int:
     return cfg.skips[0] if cfg.skips and cfg.skips[0] < cfg.D else -1
 
 
-def spec_of(cfg: NeRFWConfig, emb: Embedder, fine: bool) -> KernelSpec:
+def spec_of(cfg: NeRFWConfig, emb: Embedder, fine: bool,
+            static: bool = False) -> KernelSpec:
     return KernelSpec(D=cfg.D, W=cfg.W, skip=eff_skip(cfg),
-                      F=emb.num_freqs, fine=fine)
+                      F=emb.num_freqs, fine=fine, static=static)
 
 
 def _layout(spec: KernelSpec) -> Tuple[List, List]:
@@ -94,6 +120,9 @@ def _layout(spec: KernelSpec) -> Tuple[List, List]:
         ws += [("w_dt", (W, W))] + [(f"w_tr{i}", (half, half)) for i in range(3)]
         ws.append(("w_heads", (N_RAW, W)))
         bs += [("b_dt", (W,)), ("b_tr", (3, half)), ("b_heads", (N_RAW,))]
+    elif spec.static:
+        ws += [("w_dt", (half, W)), ("w_heads", (N_STATIC, W))]
+        bs += [("b_dt", (half,)), ("b_heads", (N_STATIC,))]
     else:
         ws.append(("w_sigma", (W,)))
         bs.append(("b_sigma", (1,)))
@@ -187,6 +216,38 @@ def pack_fine_t(params: Dict, cfg: NeRFWConfig, emb: Embedder) -> Dict:
     return _finish(parts, spec, emb, w_final.device)
 
 
+def pack_static_t(params: Dict, cfg: NeRFWConfig, emb: Embedder) -> Dict:
+    """Static (no-transient) pack for the train-time coarse sweep of
+    fine_raw_t: trunk, xyz_final folded into the dir half of the dt
+    layer (w_dt is (W/2, W)), rgb head over d and sigma head over h.
+    Reference semantics: nerfw_apply_rays(output_transient=False)."""
+    if cfg.out_ch != 3:
+        raise ValueError("fused static kernel supports out_ch=3 only")
+    spec = spec_of(cfg, emb, fine=False, static=True)
+    parts = _pack_trunk(params, cfg, spec)
+    f32 = torch.float32
+    W, half = cfg.W, cfg.W // 2
+    w_final = params["xyz_final"]["w"].to(f32)
+    wd_h = params["dir"]["w"].to(f32)[:W]                         # (W, half)
+    parts["w_dt"] = (w_final @ wd_h).t()
+    parts["b_dt"] = params["xyz_final"]["b"].to(f32) @ wd_h
+    heads = w_final.new_zeros((N_STATIC, W))
+    heads[0:3, :half] = params["static_rgb"]["w"].to(f32).t()
+    heads[3] = params["static_sigma"]["w"].to(f32)[:, 0]          # over h
+    parts["w_heads"] = heads
+    parts["b_heads"] = torch.cat([params["static_rgb"]["b"],
+                                  params["static_sigma"]["b"]]).to(f32)
+    return _finish(parts, spec, emb, w_final.device)
+
+
+def per_ray_row_static(params: Dict, cfg: NeRFWConfig, dir_emb):
+    """(N, W/2) float32: the per-ray half of the dir layer for the static
+    pack (the coarse net has no appearance input), bias folded in."""
+    W = cfg.W
+    dp = dir_emb @ params["dir"]["w"][W:W + cfg.in_dir] + params["dir"]["b"]
+    return dp.float().contiguous()
+
+
 def per_ray_row(params: Dict, cfg: NeRFWConfig, dir_emb, a_emb, t_emb):
     """(N, W) float32 [dp | tp]: the per-ray halves of the dir and
     transient-0 layers, biases folded in. a/t embeddings may be (1, .)
@@ -252,24 +313,113 @@ def coarse_sigma_plain(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
     return sig.reshape(rays_o.shape[0], S)
 
 
+def _points(rays_o, rays_d, z_all) -> torch.Tensor:
+    return (rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]).reshape(-1, 3)
+
+
 def fine_raw_plain(packed: Dict, rays_o, rays_d, z_all, dpt, spec: KernelSpec):
-    """Plain version of fine_raw_t: (9, N, S) float32 pre-activation rows."""
+    """Plain version of fine_raw_t: (9, N, S) float32 pre-activation rows
+    for the fine pack, (4, N, S) [rgb, sigma] for the static pack."""
     v = unpack(packed, spec)
     N, S = z_all.shape
     half = spec.W // 2
-    pts = (rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]).reshape(-1, 3)
-    h = _trunk_plain(v, spec, _pe_plain(pts, packed["freqs"], spec.K0))
+    h = _trunk_plain(v, spec, _pe_plain(_points(rays_o, rays_d, z_all),
+                                        packed["freqs"], spec.K0))
     heads, bh = v["w_heads"].float(), v["b_heads"]
     sigma = h @ heads[3] + bh[3]
     pre = (h @ v["w_dt"].float().t()).reshape(N, S, -1) + v["b_dt"] + dpt[:, None, :]
     dt = _bf(torch.relu(pre)).reshape(N * S, -1)
-    d, t = dt[:, :half], dt[:, half:]
+    d = dt[:, :half]
+    rgb = d @ heads[0:3, :half].t() + bh[0:3]
+    if not spec.fine:
+        raw = torch.cat([rgb, sigma[:, None]], -1)             # (N*S, 4)
+        return raw.t().reshape(N_STATIC, N, S).contiguous()
+    t = dt[:, half:]
     for i in range(3):
         t = _bf(torch.relu(t @ v[f"w_tr{i}"].float().t() + v["b_tr"][i]))
-    rgb = d @ heads[0:3, :half].t() + bh[0:3]
     trans = t @ heads[4:9, half:].t() + bh[4:9]
     raw = torch.cat([rgb, sigma[:, None], trans], -1)          # (N*S, 9)
     return raw.t().reshape(N_RAW, N, S).contiguous()
+
+
+def raw_bwd_plain(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec):
+    """Plain version of raw_bwd_t, the backward of fine_raw_t (fine or
+    static pack) for the cotangent g (n_raw, N, S) of its output:
+    returns (d_w (bf16, packed["w"]'s layout), d_b (float32, packed["b"]'s
+    layout), d_dpt (N, Wd) float32). Rays, z and freqs get none.
+
+    Precision contract of the JAX kernel (_bwd_kernel_t): g is rounded to
+    bf16 before the heads' weight and bias grads and their input grads;
+    each later cotangent is masked by its stashed activation > 0 and
+    rounded to bf16 before it becomes a matmul operand; every product
+    sums in float32; weight grads leave as bf16."""
+    v = unpack(packed, spec)
+    N, S = z_all.shape
+    P, W, half, Wd = N * S, spec.W, spec.W // 2, spec.Wd
+    wf = {k: t.float() for k, t in v.items()}
+    # forward recompute, stashing the post-ReLU activations (bf16 values)
+    x0 = _pe_plain(_points(rays_o, rays_d, z_all), packed["freqs"], spec.K0)
+    b = v["b_trunk"]
+    hs = [_bf(torch.relu(x0 @ wf["w0"].t() + b[0]))]
+    for i in range(1, spec.D):
+        if i == spec.skip:
+            y = x0 @ wf[f"wx{i}"].t() + hs[-1] @ wf[f"wh{i}"].t()
+        else:
+            y = hs[-1] @ wf[f"w{i}"].t()
+        hs.append(_bf(torch.relu(y + b[i])))
+    h = hs[-1]
+    pre = (h @ wf["w_dt"].t()).reshape(N, S, Wd) + v["b_dt"] + dpt[:, None, :]
+    dt0 = _bf(torch.relu(pre)).reshape(P, Wd)
+    d = dt0[:, :half]
+    ts = []
+    if spec.fine:
+        ts = [dt0[:, half:]]
+        for i in range(3):
+            ts.append(_bf(torch.relu(ts[-1] @ wf[f"w_tr{i}"].t() + v["b_tr"][i])))
+
+    def masked(act, gr):
+        return _bf(torch.where(act > 0, gr, torch.zeros_like(gr)))
+
+    # heads
+    heads = wf["w_heads"]
+    gb = _bf(g.reshape(spec.n_raw, P).t())                    # (P, n_raw)
+    grads = {"w_heads": torch.zeros_like(heads)}
+    grads["w_heads"][0:3, :half] = gb[:, 0:3].t() @ d
+    grads["w_heads"][3] = gb[:, 3] @ h
+    g0 = masked(d, gb[:, 0:3] @ heads[0:3, :half])
+    if spec.fine:
+        grads["w_heads"][4:9, half:] = gb[:, 4:9].t() @ ts[3]
+        gt = gb[:, 4:9] @ heads[4:9, half:]
+        grads["b_tr"] = torch.zeros_like(v["b_tr"])
+        for i in (2, 1, 0):
+            gp = masked(ts[i + 1], gt)
+            grads[f"w_tr{i}"] = gp.t() @ ts[i]
+            grads["b_tr"][i] = gp.sum(0)
+            gt = gp @ wf[f"w_tr{i}"]
+        g0 = torch.cat([g0, masked(ts[0], gt)], -1)
+    grads["b_heads"] = gb.sum(0)
+    # the dt layer: weight, bias and the per-ray rows
+    grads["w_dt"] = g0.t() @ h
+    grads["b_dt"] = g0.sum(0)
+    d_dpt = g0.reshape(N, S, Wd).sum(1)
+    g_h = g0 @ wf["w_dt"] + gb[:, 3:4] * heads[3][None]
+    # trunk
+    grads["b_trunk"] = torch.zeros_like(b)
+    for i in range(spec.D - 1, -1, -1):
+        gp = masked(hs[i], g_h)
+        grads["b_trunk"][i] = gp.sum(0)
+        if i == 0:
+            grads["w0"] = gp.t() @ x0
+        elif i == spec.skip:
+            grads[f"wx{i}"] = gp.t() @ x0
+            grads[f"wh{i}"] = gp.t() @ hs[i - 1]
+            g_h = gp @ wf[f"wh{i}"]
+        else:
+            grads[f"w{i}"] = gp.t() @ hs[i - 1]
+            g_h = gp @ wf[f"w{i}"]
+    ws, bs = _layout(spec)
+    return (_flat(grads, ws, torch.bfloat16), _flat(grads, bs, torch.float32),
+            d_dpt)
 
 
 def _composite_plain(raw: torch.Tensor, z_all: torch.Tensor) -> torch.Tensor:
@@ -377,39 +527,38 @@ def coarse_sigma_t(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
     return out
 
 
-def _fine_launch(kname: str, lib: str, packed, rays_o, rays_d, z_all, dpt,
-                 spec: KernelSpec, out: torch.Tensor):
-    from dfnet_tpu_torch.ops import build
-
-    if not spec.fine:
-        raise ValueError(f"{kname} takes a fine pack")
+def _fine_args(packed, spec: KernelSpec, rays_o, rays_d, z_all, dpt):
+    """Checks of the fine-sweep kernels' inputs; their common arguments."""
     N, S = z_all.shape
     _check_common(packed, spec, rays_o, rays_d, S)
     _check("z_all", z_all, (N, S), torch.float32, rays_o.device)
-    _check("dpt", dpt, (N, spec.W), torch.float32, rays_o.device)
-    if N == 0:
-        return out
-    fn = build.load(lib)
-    rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), z_all.data_ptr(),
+    _check("dpt", dpt, (N, spec.Wd), torch.float32, rays_o.device)
+    return (rays_o.data_ptr(), rays_d.data_ptr(), z_all.data_ptr(),
             dpt.data_ptr(), N, S, packed["w"].data_ptr(), packed["b"].data_ptr(),
-            packed["freqs"].data_ptr(), spec.D, spec.W, spec.skip, spec.F,
-            out.data_ptr(), _stream(out))
-    _raise_on(rc, kname)
-    LAUNCHES[kname] += 1
-    return out
+            packed["freqs"].data_ptr(), spec.D, spec.W, spec.skip, spec.F)
 
 
 def fine_raw_t(packed: Dict, rays_o, rays_d, z_all, dpt,
                spec: KernelSpec) -> torch.Tensor:
-    """Fine NeRF-W sweep: rays (N,3)x2, sorted z (N,S), per-ray rows dpt
-    (N,W) -> (9, N, S) float32 PRE-activation rows [rgb, sigma, t-rgb,
-    t-sigma, t-beta]."""
+    """MLP sweep at given z: rays (N,3)x2, sorted z (N,S), per-ray rows dpt
+    (N, spec.Wd) -> PRE-activation rows, (9, N, S) [rgb, sigma, t-rgb,
+    t-sigma, t-beta] for the fine pack, (4, N, S) [rgb, sigma] for the
+    static pack."""
     if not _on_cuda(rays_o):
         return fine_raw_plain(packed, rays_o, rays_d, z_all, dpt, spec)
+    from dfnet_tpu_torch.ops import build
+
+    if not (spec.fine or spec.static):
+        raise ValueError("fine_raw_t takes a fine or a static pack")
     N, S = z_all.shape
-    out = torch.empty((N_RAW, N, S), device=rays_o.device, dtype=torch.float32)
-    return _fine_launch("fine_raw_t", "fine_raw", packed, rays_o, rays_d,
-                        z_all, dpt, spec, out)
+    out = torch.empty((spec.n_raw, N, S), device=rays_o.device, dtype=torch.float32)
+    args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
+    if N == 0:
+        return out
+    rc = build.load("fine_raw")(*args, int(spec.static), out.data_ptr(), _stream(out))
+    _raise_on(rc, "fine_raw_t")
+    LAUNCHES["fine_raw_t"] += 1
+    return out
 
 
 def fine_composite_t(packed: Dict, rays_o, rays_d, z_all, dpt,
@@ -418,7 +567,61 @@ def fine_composite_t(packed: Dict, rays_o, rays_d, z_all, dpt,
     [rgb 0:3, acc 3, static depth 4, static rgb 5:8]."""
     if not _on_cuda(rays_o):
         return fine_composite_plain(packed, rays_o, rays_d, z_all, dpt, spec)
+    from dfnet_tpu_torch.ops import build
+
+    if not spec.fine:
+        raise ValueError("fine_composite_t takes a fine pack")
     N = z_all.shape[0]
     out = torch.empty((N_COMP, N), device=rays_o.device, dtype=torch.float32)
-    return _fine_launch("fine_composite_t", "fine_composite", packed, rays_o,
-                        rays_d, z_all, dpt, spec, out)
+    args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
+    if N == 0:
+        return out
+    rc = build.load("fine_composite")(*args, out.data_ptr(), _stream(out))
+    _raise_on(rc, "fine_composite_t")
+    LAUNCHES["fine_composite_t"] += 1
+    return out
+
+
+def bwd_tile(W: int) -> int:
+    """Points per tile of raw_bwd_t: every activation of a tile is stashed
+    in shared memory, so wide trunks take half as many."""
+    return 32 if W <= 128 else 16
+
+
+def raw_bwd_t(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec):
+    """Backward of fine_raw_t (fine or static pack) for the float32
+    cotangent g of its output: (d_w bf16 in packed["w"]'s layout, d_b
+    float32 in packed["b"]'s layout, d_dpt (N, spec.Wd) float32). No
+    cotangents for rays, z or freqs (stage-1 contract: z is sampled
+    without gradient and rays carry no parameters)."""
+    if not _on_cuda(rays_o):
+        return raw_bwd_plain(packed, rays_o, rays_d, z_all, dpt, g, spec)
+    from dfnet_tpu_torch.ops import build
+
+    if not (spec.fine or spec.static):
+        raise ValueError("raw_bwd_t takes a fine or a static pack")
+    N, S = z_all.shape
+    dev = rays_o.device
+    args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
+    _check("g", g, (spec.n_raw, N, S), torch.float32, dev)
+    d_w = torch.empty_like(packed["w"])
+    d_b = torch.empty_like(packed["b"])
+    d_dpt = torch.empty((N, spec.Wd), device=dev, dtype=torch.float32)
+    if N == 0:
+        return d_w.zero_(), d_b.zero_(), d_dpt
+    TP = bwd_tile(spec.W)
+    n_tiles = -(-N * S // TP)
+    n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # one float32 slab of weight and bias grads per block (summed by a
+    # second pass) and per-tile partial sums of d_dpt (rays a tile touches)
+    slab = -(-(d_w.numel() + d_b.numel()) // 64) * 64
+    slabs = torch.empty((n_blocks, slab), device=dev, dtype=torch.float32)
+    kmax = (TP + S - 2) // S + 1
+    dpt_part = torch.empty((n_tiles, kmax, spec.Wd), device=dev, dtype=torch.float32)
+    rc = build.load("raw_bwd")(*args, int(spec.static), g.data_ptr(), TP,
+                               slabs.data_ptr(), n_blocks, slab,
+                               dpt_part.data_ptr(), kmax, d_w.data_ptr(),
+                               d_b.data_ptr(), d_dpt.data_ptr(), _stream(d_w))
+    _raise_on(rc, "raw_bwd_t")
+    LAUNCHES["raw_bwd_t"] += 1
+    return d_w, d_b, d_dpt

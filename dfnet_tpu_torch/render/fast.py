@@ -30,7 +30,12 @@ import torch.nn.functional as Fn
 
 from dfnet_tpu_torch.models.nerfw import lookup_hist_embedding
 from dfnet_tpu_torch.ops import nerf_kernels as nk
-from dfnet_tpu_torch.render.sampling import invert_cdf, sample_pdf, stratified_z_vals
+from dfnet_tpu_torch.render.sampling import (
+    invert_cdf,
+    sample_pdf,
+    stratified_z_vals,
+    uniform,
+)
 from dfnet_tpu_torch.render.volume import (
     NeRFHModel,
     RenderSettings,
@@ -146,8 +151,7 @@ def sample_pdf_culled(bins, weights, n_total: int, lam: float, q: float,
         u = torch.linspace(0.0, 1.0, n_total, device=bins.device) * (1.0 - 1e-6)
         u = u.expand(cdf_mix.shape[:-1] + (n_total,))
     else:
-        xi = torch.rand(cdf_mix.shape[:-1] + (n_total,), generator=gen,
-                        device=bins.device)
+        xi = uniform(cdf_mix.shape[:-1] + (n_total,), gen, bins.device)
         u = (torch.arange(n_total, dtype=torch.float32, device=bins.device)
              + xi) / n_total * (1.0 - 1e-6)
     u = u * cdf_mix[..., -1:]

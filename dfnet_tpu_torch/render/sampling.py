@@ -1,11 +1,32 @@
 """Ray sampling: stratified coarse samples and inverse-CDF hierarchical
-(importance) resampling (port of dfnet_tpu/render/sampling.py)."""
+(importance) resampling (port of dfnet_tpu/render/sampling.py).
+
+Random draws take an explicit `torch.Generator` that lives on the device
+of the tensors they are drawn for (`torch.Generator(device=...)`)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+def _check_gen(gen: torch.Generator, device) -> None:
+    if gen.device.type != torch.device(device).type:
+        raise ValueError(f"a generator on {gen.device} cannot draw for tensors on "
+                         f"{device}: make it with torch.Generator(device=...)")
+
+
+def uniform(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """U[0, 1) float32 draws from `gen`, which must be on `device`."""
+    _check_gen(gen, device)
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def gaussian(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """N(0, 1) float32 draws from `gen`, which must be on `device`."""
+    _check_gen(gen, device)
+    return torch.randn(shape, generator=gen, device=device)
 
 
 def stratified_z_vals(near, far, N_samples: int,
@@ -23,7 +44,7 @@ def stratified_z_vals(near, far, N_samples: int,
         mids = 0.5 * (z[..., 1:] + z[..., :-1])
         upper = torch.cat([mids, z[..., -1:]], -1)
         lower = torch.cat([z[..., :1], mids], -1)
-        u = torch.rand(z.shape, generator=gen, device=z.device)
+        u = uniform(z.shape, gen, z.device)
         z = lower + (upper - lower) * u
     return z
 
@@ -67,6 +88,5 @@ def sample_pdf(bins, weights, N_importance: int,
         u = torch.linspace(0.0, 1.0, N_importance, device=cdf.device)
         u = u.expand(cdf.shape[:-1] + (N_importance,))
     else:
-        u = torch.rand(cdf.shape[:-1] + (N_importance,), generator=gen,
-                       device=cdf.device)
+        u = uniform(cdf.shape[:-1] + (N_importance,), gen, cdf.device)
     return invert_cdf(cdf, bins, u, cdf[..., :1], bins[..., :1]).detach()

@@ -1,11 +1,12 @@
-"""Volume rendering, test-time subset (port of dfnet_tpu/render/volume.py).
+"""Volume rendering (port of dfnet_tpu/render/volume.py, NeRF-H only).
 
 NeRF-W compositing (1e2 terminal delta, no ray-norm scaling of deltas,
 shifted-cumprod transmittance; at test time rgb stays the static +
 transient composite while depth/disp re-composite static-only) and the
-coarse -> fine pipeline at test settings. This is the plain renderer that
-`render/fast.py::fast_path_supported` falls back to. The train-time
-branches come with the training slice of the port.
+coarse -> fine pipeline at train and test settings. This is the plain
+renderer that `render/fast.py::fast_path_supported` and
+`render/fused_train.py::fused_train_supported` fall back to; it is
+differentiable in the params and the rays.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from dfnet_tpu_torch.models.nerfw import (
     nerfw_apply_rays,
 )
 from dfnet_tpu_torch.render.rays import get_rays
-from dfnet_tpu_torch.render.sampling import sample_pdf, stratified_z_vals
+from dfnet_tpu_torch.render.sampling import gaussian, sample_pdf, stratified_z_vals
 
 
 @dataclass(frozen=True)
@@ -70,10 +71,12 @@ def _shifted_cumprod(alphas):
 
 def composite_nerfw(raw, z_vals, output_transient: bool, beta_min: float = 0.1,
                     white_bkgd: bool = False, test_time: bool = False,
+                    raw_noise: Optional[torch.Tensor] = None,
                     sigma_only: bool = False, out_ch: int = 3) -> Dict:
     """NeRF-W compositing of activated MLP outputs along each ray.
     raw: (N, S, C) with C = out_ch+1 (static), 2*out_ch+3 (transient) or
-    1 (sigma_only)."""
+    1 (sigma_only). raw_noise (N, S) is added to the static sigma (then
+    relu'd) of a static composite."""
     deltas = z_vals[:, 1:] - z_vals[:, :-1]
     deltas = torch.cat([deltas, 1e2 * torch.ones_like(deltas[:, :1])], -1)
 
@@ -92,7 +95,10 @@ def composite_nerfw(raw, z_vals, output_transient: bool, beta_min: float = 0.1,
         transient_alphas = 1.0 - torch.exp(-deltas * transient_sigmas)
         alphas = 1.0 - torch.exp(-deltas * (static_sigmas + transient_sigmas))
     else:
-        alphas = 1.0 - torch.exp(-deltas * static_sigmas)
+        sig = static_sigmas
+        if raw_noise is not None:
+            sig = torch.relu(sig + raw_noise)
+        alphas = 1.0 - torch.exp(-deltas * sig)
 
     trans = _shifted_cumprod(alphas)
     weights = alphas * trans
@@ -132,35 +138,63 @@ def composite_nerfw(raw, z_vals, output_transient: bool, beta_min: float = 0.1,
 
 def render_rays(params: Dict, model: NeRFHModel, rays_o: torch.Tensor,
                 rays_d: torch.Tensor, hist: torch.Tensor,
-                settings: RenderSettings) -> Dict:
-    """Test-time render of a batch of rays through coarse + fine NeRF-H:
-    sigma-only coarse pass, deterministic importance samples unioned with
-    the coarse z's, full NeRF-W fine pass."""
-    if not settings.test_time:
-        raise NotImplementedError(
-            "train-time render_rays comes with the training slice of the port "
-            "(ROADMAP.md)")
+                settings: RenderSettings,
+                gen: Optional[torch.Generator] = None) -> Dict:
+    """Render a batch of rays through coarse + fine NeRF-H. At test time
+    the coarse pass is sigma-only and the importance samples are
+    deterministic; at train time the coarse pass is the full static
+    NeRF-W, with stratified jitter (perturb > 0), sigma noise
+    (raw_noise_std > 0) and random importance samples drawn from `gen`,
+    in that order. Fine z samples carry no gradient, as in the reference."""
     n = rays_o.shape[0]
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     near = torch.full((n, 1), settings.near, device=rays_o.device)
     far = torch.full((n, 1), settings.far, device=rays_o.device)
-    z_vals = stratified_z_vals(near, far, settings.N_samples, None,
-                               settings.lindisp, 0.0)
+    z_vals = stratified_z_vals(near, far, settings.N_samples, gen,
+                               settings.lindisp, settings.perturb)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    raw_c = nerfw_apply_rays(params["coarse"], model.cfg_coarse,
-                             model.embed_xyz(pts), sigma_only=True)
-    comp_c = composite_nerfw(raw_c, z_vals, output_transient=False,
-                             sigma_only=True)
+    cfgc = model.cfg_coarse
+    out: Dict = {}
+    if settings.test_time:
+        raw_c = nerfw_apply_rays(params["coarse"], cfgc, model.embed_xyz(pts),
+                                 sigma_only=True)
+        comp_c = composite_nerfw(raw_c, z_vals, output_transient=False,
+                                 sigma_only=True)
+    else:
+        raw_c = nerfw_apply_rays(params["coarse"], cfgc, model.embed_xyz(pts),
+                                 model.embed_dir(viewdirs), output_transient=False)
+        noise = None
+        if settings.raw_noise_std > 0.0 and gen is not None:
+            noise = settings.raw_noise_std * gaussian(raw_c.shape[:-1], gen,
+                                                      rays_o.device)
+        comp_c = composite_nerfw(raw_c, z_vals, output_transient=False,
+                                 white_bkgd=settings.white_bkgd, raw_noise=noise,
+                                 out_ch=cfgc.out_ch)
+        out.update(rgb0=comp_c["rgb"], disp0=comp_c["disp"], acc0=comp_c["acc"])
     if settings.N_importance <= 0:
-        return {"acc": comp_c["acc"]}
+        out["acc"] = comp_c["acc"]
+        if not settings.test_time:
+            out.update(rgb=comp_c["rgb"], disp=comp_c["disp"])
+        return out
 
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    z_samples = sample_pdf(z_mid, comp_c["weights"][..., 1:-1],
-                           settings.N_importance, None, det=True)
-    if settings.fine_importance_only:
-        z_all = torch.sort(z_samples, -1).values
+    if settings.train_cull_q > 0.0 and not settings.test_time:
+        from dfnet_tpu_torch.render.fast import sample_pdf_culled
+
+        S, I = settings.N_samples, settings.N_importance
+        z_all = sample_pdf_culled(z_mid, comp_c["weights"][..., 1:-1],
+                                  settings.train_fine_total or (S + I),
+                                  lam=S / (S + I), q=settings.train_cull_q,
+                                  gen=gen if settings.perturb > 0.0 else None)
+        z_samples = z_all
     else:
-        z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
+        z_samples = sample_pdf(z_mid, comp_c["weights"][..., 1:-1],
+                               settings.N_importance, gen,
+                               det=(settings.perturb == 0.0))
+        if settings.fine_importance_only:
+            z_all = torch.sort(z_samples, -1).values
+        else:
+            z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
     pts_f = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
     cfgf = model.cfg_fine
     dir_emb = model.embed_dir(viewdirs)
@@ -170,9 +204,14 @@ def render_rays(params: Dict, model: NeRFHModel, rays_o: torch.Tensor,
                              dir_emb, a_emb, t_emb, output_transient=True)
     comp_f = composite_nerfw(raw_f, z_all, output_transient=True,
                              beta_min=cfgf.beta_min,
-                             white_bkgd=settings.white_bkgd, test_time=True,
-                             out_ch=cfgf.out_ch)
-    return {k: comp_f[k] for k in ("rgb", "disp", "acc", "depth")}
+                             white_bkgd=settings.white_bkgd,
+                             test_time=settings.test_time, out_ch=cfgf.out_ch)
+    out.update({k: comp_f[k] for k in ("rgb", "disp", "acc", "depth")})
+    if not settings.test_time:
+        out.update(beta=comp_f["beta"], transient_sigmas=comp_f["transient_sigmas"],
+                   z_std=torch.std(z_samples, -1, correction=0), z_vals=z_vals,
+                   z_all=z_all, weights_fine=comp_f["weights"])
+    return out
 
 
 def chunked_rays(H: int, W: int, focal: float, c2w: torch.Tensor, chunk: int):

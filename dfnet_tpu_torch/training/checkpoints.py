@@ -6,7 +6,10 @@ package reads what the other writes): one `.npz` whose keys are
 `tree/<path>` for every leaf of the saved tree (`#i` path parts for
 list/tuple items, an `@none` suffix for None) and `__scalar__<name>` for
 scalars such as `global_step`. NeRF checkpoints are
-`<expdir>/<epoch:06d>.npz` holding `{"params": ...}`.
+`<expdir>/<epoch:06d>.npz` holding `{"params": ..., "opt_state": ...}`,
+where `opt_state` is the JAX package's optax
+`inject_hyperparams(adam)` state laid out as that package flattens it
+(`adam_state_tree`), so each package resumes the other's optimizer warm.
 """
 
 from __future__ import annotations
@@ -109,3 +112,31 @@ def latest_checkpoint(expdir: str, pattern: str = r"^(\d+)\.npz$") -> Optional[s
         if m and int(m.group(1)) > best_step:
             best, best_step = f, int(m.group(1))
     return osp.join(expdir, best) if best else None
+
+
+ADAM_HYPER = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0}
+
+
+def adam_state_tree(count: int, lr: float, mu, nu) -> tuple:
+    """The optimizer state in the JAX package's checkpoint layout: optax's
+    InjectStatefulHyperparamsState(count, hyperparams, hyperparams_states,
+    inner_state=(ScaleByAdamState(count, mu, nu), EmptyState())). It
+    flattens to `#0` (count, int32), `#1/{b1,b2,eps,eps_root,learning_rate}`
+    (float32), `#3/#0/#0` (count), `#3/#0/#1/<param path>` (mu) and
+    `#3/#0/#2/<param path>` (nu); the empty `#2` and EmptyState write no
+    keys. mu and nu are trees shaped like the params."""
+    c = np.asarray(count, np.int32)
+    hyper = {k: np.asarray(v, np.float32) for k, v in ADAM_HYPER.items()}
+    hyper["learning_rate"] = np.asarray(lr, np.float32)
+    return (c, hyper, {}, ((c, mu, nu), ()))
+
+
+def adam_state_from_tree(opt) -> Tuple[int, Dict, Any, Any]:
+    """(count, hyperparams, mu, nu) from a loaded `opt_state` subtree of
+    either package. Loading drops the key-less `#2` and EmptyState, so the
+    tree reads back as (count, hyperparams, ((count, mu, nu),))."""
+    count, hyper, inner = opt[0], opt[1], opt[-1]
+    adam = inner[0]
+    if not isinstance(hyper, dict) or len(adam) != 3:
+        raise ValueError("opt_state is not an inject_hyperparams(adam) state")
+    return int(np.asarray(count)), hyper, adam[1], adam[2]

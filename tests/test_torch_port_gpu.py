@@ -9,7 +9,9 @@ Skips where there is no CUDA device. Small random nets, ragged ray counts
 (the kernels mask the last tile's edge themselves). Tolerances: raw
 pre-activation outputs 2e-2, composited outputs 3e-2 (the kernel and the
 plain version sum their float32 products in different orders, so a bf16
-activation can round the other way)."""
+activation can round the other way); gradients 3e-2 times each packed
+entry's largest magnitude (bf16 cotangents, and the kernel sums over its
+tiles and blocks in another order)."""
 
 import numpy as np
 import pytest
@@ -84,7 +86,7 @@ def test_fine_kernels_match_plain(cuda, D, W, skip, S):
     _close(nk.fine_raw_t, nk.fine_raw_plain, args, 2e-2)
     _close(nk.fine_composite_t, nk.fine_composite_plain, args, 3e-2)
     assert nk.LAUNCHES == {"coarse_sigma_t": 0, "fine_raw_t": 1,
-                           "fine_composite_t": 1}
+                           "fine_composite_t": 1, "raw_bwd_t": 0}
 
 
 @pytest.mark.gpu
@@ -99,3 +101,57 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         nk.coarse_sigma_t(packed, ro, rd.double(), spec, 16, NEAR, FAR)
     with pytest.raises(ValueError, match="rays_o"):
         nk.coarse_sigma_t(packed, ro.t().contiguous().t(), rd, spec, 16, NEAR, FAR)
+
+
+def _sweep_inputs(D, W, skip, static, N, S, device, seed):
+    cfg = NeRFWConfig(D=D, W=W, skips=(skip,), encode_appearance=True,
+                      encode_transient=True)
+    params = init_nerfw_params(torch.Generator().manual_seed(seed), cfg, device)
+    emb = get_embedder(10)
+    packed = (nk.pack_static_t if static else nk.pack_fine_t)(params, cfg, emb)
+    packed = {k: v.detach() for k, v in packed.items()}
+    spec = nk.spec_of(cfg, emb, fine=not static, static=static)
+    ro, rd = _rays(N, seed=seed, device=device)
+    rng = np.random.default_rng(seed + 1)
+    z = torch.tensor(np.sort(rng.uniform(NEAR, FAR, (N, S)), -1).astype(np.float32),
+                     device=device)
+    dpt = torch.tensor(rng.normal(size=(N, spec.Wd)).astype(np.float32), device=device)
+    g = torch.tensor(rng.uniform(size=(spec.n_raw, N, S)).astype(np.float32),
+                     device=device)
+    return packed, spec, ro, rd, z, dpt, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,W,skip,S", [(4, 64, 2, 24), (2, 256, 1, 64)])
+def test_static_fine_raw_kernel_matches_plain(cuda, D, W, skip, S):
+    packed, spec, ro, rd, z, dpt, _ = _sweep_inputs(D, W, skip, True, 37, S, cuda, W)
+    nk.reset_launches()
+    _close(nk.fine_raw_t, nk.fine_raw_plain, (packed, ro, rd, z, dpt, spec), 2e-2)
+    assert nk.LAUNCHES["fine_raw_t"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("D,W,skip,S", [(4, 64, 2, 24), (2, 256, 1, 64)])
+def test_raw_bwd_kernel_matches_plain(cuda, D, W, skip, S, static):
+    N = 37                                      # ragged against every tile
+    packed, spec, ro, rd, z, dpt, g = _sweep_inputs(D, W, skip, static, N, S, cuda,
+                                                    D + W)
+    args = (packed, ro, rd, z, dpt, g, spec)
+    nk.reset_launches()
+    got = nk.raw_bwd_t(*args)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["raw_bwd_t"] == 1
+    want = nk.raw_bwd_plain(*args)
+    assert got[0].dtype == torch.bfloat16 and got[2].shape == (N, spec.Wd)
+    named = lambda r: {**nk.unpack({"w": r[0], "b": r[1]}, spec), "dpt": r[2]}
+    for name, w in named(want).items():
+        k = named(got)[name].float()
+        assert torch.isfinite(k).all(), name
+        scale = max(k.abs().max().item(), w.float().abs().max().item(), 1e-6)
+        err = (k - w.float()).abs().max().item()
+        assert err < 3e-2 * scale, f"{name}: err {err:.3e} scale {scale:.3e}"
+    # the sums are deterministic: a second launch gives the same bits
+    again = nk.raw_bwd_t(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)

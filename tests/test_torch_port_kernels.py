@@ -148,4 +148,4 @@ def test_wrappers_count_only_kernel_launches():
                       torch.tensor(ro), torch.tensor(rd),
                       nk.spec_of(tc, get_embedder(4), fine=False), 8, NEAR, FAR)
     assert nk.LAUNCHES == {"coarse_sigma_t": 0, "fine_raw_t": 0,
-                           "fine_composite_t": 0}
+                           "fine_composite_t": 0, "raw_bwd_t": 0}
