@@ -9,15 +9,17 @@ Phases (any failure exits non-zero):
                ptxas' register / shared-memory report;
   2. kernels — call each kernel's wrapper on the inputs the render path
                gives it (trained assets, 16384 rays from the synthetic val
-               cameras) and on the inputs one full-width train step gives it
-               (the static and the fine sweep forward and backward, 1536
-               rays of a train view), and hold it against its plain PyTorch
-               version: raw outputs within atol/rtol 2e-2, composited rgb
-               within 3e-2, except a 1e-5 share (bf16 rounding flips, see
-               FLIP_SHARE) that must stay within 10x those tolerances;
-               gradients within 3e-2 x each packed entry's largest
-               magnitude (TOL_GRAD; the per-ray d_dpt under the FLIP_SHARE
-               rule); time kernel and plain version with CUDA events;
+               cameras; the exact-union, culled and mono schedules) and on
+               the inputs one full-width train step gives it (the static and
+               the fine sweep forward and backward, 1536 rays of a train
+               view), and hold it against its plain PyTorch version: raw
+               outputs within atol/rtol 2e-2, composited rgb within 3e-2,
+               fine z samples within 2e-3 absolute and sorted, except a 1e-5
+               share (bf16 rounding flips, see FLIP_SHARE) that must stay
+               within 10x those tolerances; gradients within 3e-2 x each
+               packed entry's largest magnitude (TOL_GRAD; the per-ray d_dpt
+               under the FLIP_SHARE rule); time kernel and plain version
+               with CUDA events;
   3. e2e     — save assets/nerfh_synthetic_301.npz as a checkpoint and run
                the port's stage-1 CLI with --render_test at the shipped
                full-width config; the coarse_sigma_t and fine_raw_t launch
@@ -27,7 +29,27 @@ Phases (any failure exits non-zero):
   4. render  — bench-style throughput: 2^20 rays from the val cameras in
                16384-ray chunks, under the exact-union schedule and the
                culled fused schedule (fine_composite_t must launch);
-  5. train   — the port's stage-1 CLI trains the shipped full-width config
+  5. mono    — the same 2^20 rays through the mono schedule
+               (render_rays_fast(exact_union=False, mono=True):
+               proposal_z_rows + fine_composite_t, and neither sweep kernel)
+               and the two-kernel blended schedule: outputs agree at 3e-2
+               under the FLIP_SHARE rule, the 4 val views' PSNR within
+               PSNR_TOL_DB, rays/s of both; a mono call under lindisp must
+               take the two-kernel path (the JAX schedule rule);
+  6. frozen  — FrozenNeRF.from_experiment on the trained asset saved as a
+               checkpoint (identity world setup): prerender_views of the val
+               poses with tinyimg off and on (coarse_sigma_t and fine_raw_t
+               must launch), kernel renders against the plain render_fn at
+               3e-2, and the pose gradient of a photometric loss through
+               render_fn on the card (finite, non-zero) against the port's
+               CPU gradient at 3e-2 of its scale;
+  7. probe   — the layer-stack probe (dfnet_tpu_torch/scripts/
+               bench_int8_wide.py) at W=256 and W=128: both kernels against
+               their plain versions (int8 exactly, also on weights that keep
+               the stack non-zero; bf16 under bf16_stack_agreement, which
+               must reject each faulty control), the marginal ms a layer
+               and the int8/bf16 ratio;
+  8. train   — the port's stage-1 CLI trains the shipped full-width config
                from a seeded init on the synthetic scene for TRAIN_EPOCHS;
                the step must be the kernel step, every step must launch
                fine_raw_t and raw_bwd_t twice each, the loss must be finite
@@ -38,9 +60,9 @@ Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -48,6 +70,9 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from dfnet_tpu_torch.ops.tolerances import (FLIP_CAP, FLIP_SHARE, TOL_COMP, TOL_GRAD,
+                                            TOL_RAW, TOL_Z)
 
 ROOT = Path(__file__).resolve().parent
 # Mean val PSNR of the JAX package's --render_test on the trained W=128
@@ -57,20 +82,9 @@ PSNR_TOL_DB = 0.1
 CHUNK = 1 << 14
 N_RAYS = 1 << 20
 CULLED = dict(cull_q=2e-3, n_fine=24, n_place=32, fuse_composite=True)
-TOL_RAW = 2e-2
-TOL_COMP = 3e-2
-# Share of elements allowed outside atol/rtol: the kernel and the plain
-# version accumulate in float32 in different orders, so an activation that
-# sits on a bf16 rounding midpoint can round the other way; at the trained
-# nets' large activations one such flip moves an output by more than 2e-2.
-# Even those elements must stay within FLIP_CAP times atol + rtol |plain|.
-FLIP_SHARE = 1e-5
-FLIP_CAP = 10.0
-# Gradients of raw_bwd_t against raw_bwd_plain: 3e-2 of each packed entry's
-# largest magnitude. Both round the cotangents to bf16, so a ReLU mask or
-# bf16 rounding flip (see FLIP_SHARE) moves a term, and the kernel sums over
-# points in another order (WMMA tiles, per-block slabs).
-TOL_GRAD = 3e-2
+MONO = dict(exact_union=False, mono=True)
+BLENDED = dict(exact_union=False, mono=False)
+PROBE_POINTS = 1 << 21  # the layer-stack probe's default point count
 # Val PSNR of the JAX package's stage-1 run with the flags of phase_train
 # (seed 0, float32 plain train step on the CPU), from
 #   JAX_PLATFORMS=cpu python run_nerf.py --dataset_type synthetic --NeRFH \
@@ -83,41 +97,31 @@ JAX_TRAIN_VAL_PSNR = 12.598
 TRAIN_PSNR_TOL_DB = 1.0
 TRAIN_EPOCHS = 20
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (data sheet)
+PEAK_INT8 = 1979e12         # H100 SXM dense int8 OP/s (data sheet)
+PEAK_F32 = 67e12            # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
 REPLACES = {
     "coarse_sigma_t": "dfnet_tpu/ops/nerf_kernels.py:530",
     "fine_raw_t": "dfnet_tpu/ops/nerf_kernels.py:566",
     "fine_composite_t": "dfnet_tpu/ops/nerf_kernels.py:1177",
     "raw_bwd_t": "dfnet_tpu/ops/nerf_kernels.py:758",
+    "proposal_z_rows": "dfnet_tpu/ops/nerf_kernels.py:1093",
+    "mlp_stack_bf16": "scripts/bench_int8_wide.py:32",
+    "mlp_stack_int8": "scripts/bench_int8_wide.py:43",
 }
 SOURCES = {
     "coarse_sigma_t": "dfnet_tpu_torch/ops/csrc/coarse_sigma.cu",
     "fine_raw_t": "dfnet_tpu_torch/ops/csrc/fine_raw.cu",
     "fine_composite_t": "dfnet_tpu_torch/ops/csrc/fine_composite.cu",
     "raw_bwd_t": "dfnet_tpu_torch/ops/csrc/raw_bwd.cu",
+    "proposal_z_rows": "dfnet_tpu_torch/ops/csrc/proposal_z.cu",
+    "mlp_stack_bf16": "dfnet_tpu_torch/ops/csrc/mlp_stack.cu",
+    "mlp_stack_int8": "dfnet_tpu_torch/ops/csrc/mlp_stack.cu",
 }
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `reps` runs, CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def load_model(asset: str, width: int, device):
@@ -186,7 +190,8 @@ def capture(fast, settings, ro, rd, hist, **kw):
     """Run render_rays_fast once; the arguments of each kernel wrapper."""
     from dfnet_tpu_torch.render.fast import render_rays_fast
 
-    calls = spy_on(("coarse_sigma_t", "fine_raw_t", "fine_composite_t"),
+    calls = spy_on(("coarse_sigma_t", "fine_raw_t", "fine_composite_t",
+                    "proposal_z_rows"),
                    lambda: render_rays_fast(fast, ro, rd, hist, settings, **kw))
     return {n: c[-1] for n, c in calls.items() if c}
 
@@ -204,19 +209,37 @@ def capture_train_step(trainer):
     return out
 
 
+def spec_and_samples(name: str, args) -> tuple:
+    """The KernelSpec and the samples a ray of a sweep kernel's call."""
+    if name in ("coarse_sigma_t", "proposal_z_rows"):
+        return args[3], args[4]
+    return args[-1], args[3].shape[1]
+
+
 def work(name: str, args) -> tuple:
-    """(flops, bytes) the function must do / move on these inputs:
-    matmul flops at the real (unpadded) widths, each input read once and
-    each output written once."""
+    """([(operations, peak rate of their type)], bytes) the function must do
+    and move on these inputs: matmul flops at the real (unpadded) widths on
+    the tensor cores, each input read once and each output written once."""
+    if name.startswith("mlp_stack"):
+        x, ws = args
+        P, W = x.shape
+        nbytes = x.numel() * x.element_size() + ws.numel() * ws.element_size() + 32 * P
+        peak = PEAK_INT8 if name == "mlp_stack_int8" else PEAK_BF16
+        return [(2 * W * W * P * ws.shape[0], peak)], nbytes
     packed, ro = args[0], args[1]
-    spec = args[3] if name == "coarse_sigma_t" else args[-1]
+    spec, S = spec_and_samples(name, args)
     N = ro.shape[0]
-    S = args[4] if name == "coarse_sigma_t" else args[3].shape[1]
     W, half, in0 = spec.W, spec.W // 2, 6 * spec.F + 3
     per = in0 * W + (spec.D - 1) * W * W + (in0 * W if spec.skip > 0 else 0)
     wbytes = packed["w"].numel() * 2 + packed["b"].numel() * 4
     if name == "coarse_sigma_t":
-        return 2 * (per + W) * N * S, 24 * N + wbytes + 4 * N * S
+        return [(2 * (per + W) * N * S, PEAK_BF16)], 24 * N + wbytes + 4 * N * S
+    if name == "proposal_z_rows":
+        # the sweep, and the inverse CDF as the reference's S_f x (S-1)
+        # compares a ray on the CUDA cores
+        S_f = args[5]
+        return ([(2 * (per + W) * N * S, PEAK_BF16), (N * S_f * (S - 1), PEAK_F32)],
+                24 * N + wbytes + 4 * N * S_f)
     if spec.static:
         per += half * W + 3 * half + W                 # dir half of w_dt, heads
     else:
@@ -225,19 +248,29 @@ def work(name: str, args) -> tuple:
     if name == "raw_bwd_t":
         # recompute + input grads + weight grads; no input grad into x0
         macs = 3 * per - in0 * W * (2 if spec.skip > 0 else 1)
-        return (2 * macs * N * S,
+        return ([(2 * macs * N * S, PEAK_BF16)],
                 inputs + 4 * spec.n_raw * N * S + wbytes + 4 * N * spec.Wd)
     out = {"fine_raw_t": 4 * spec.n_raw * N * S, "fine_composite_t": 32 * N}[name]
-    return 2 * per * N * S, inputs + out
+    return [(2 * per * N * S, PEAK_BF16)], inputs + out
 
 
-def compare_rows(got, want, tol):
+def bound(name: str, args) -> tuple:
+    """(bound_ms, "operations" or "bytes"): the larger of the operations'
+    time at their type's peak and the bytes' time at the HBM rate."""
+    terms, nbytes = work(name, args)
+    t_ops = max(n / peak for n, peak in terms)
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare_rows(got, want, tol, rtol=None):
     """Kernel rows against the plain version: FLIP_SHARE may fall outside
-    atol/rtol `tol`, none by more than FLIP_CAP times."""
+    atol `tol` / rtol (`tol` unless given), none by more than FLIP_CAP times."""
     import torch
 
+    rtol = tol if rtol is None else rtol
     err = (got - want).abs()
-    ratio = err / (tol + tol * want.abs())    # > 1: outside atol/rtol
+    ratio = err / (tol + rtol * want.abs())   # > 1: outside atol/rtol
     bad = int((ratio > 1).sum())
     worst = int(ratio.argmax())
     info = dict(max_abs_err=float(err.max()), out_of_tol=bad,
@@ -294,34 +327,38 @@ def measure(name, a, k, asset, sched):
     import torch
 
     from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.utils.timing import cuda_ms
 
     kern = getattr(nk, name)
     plain = {"coarse_sigma_t": nk.coarse_sigma_plain, "fine_raw_t": nk.fine_raw_plain,
              "fine_composite_t": nk.fine_composite_plain,
-             "raw_bwd_t": nk.raw_bwd_plain}[name]
-    spec = a[3] if name == "coarse_sigma_t" else a[-1]
-    S = a[4] if name == "coarse_sigma_t" else a[3].shape[1]
+             "raw_bwd_t": nk.raw_bwd_plain, "proposal_z_rows": nk.proposal_z_plain}[name]
+    spec, S = spec_and_samples(name, a)
     with torch.no_grad():
         got = kern(*a, **k)
         torch.cuda.synchronize()
         want = plain(*a, **k)
         if name == "raw_bwd_t":
             ok, info = compare_grads(got, want, spec, S)
+        elif name == "proposal_z_rows":
+            ok, info = compare_rows(got, want, TOL_Z, rtol=0.0)
+            info["unsorted_rows"] = int((got[:, 1:] < got[:, :-1]).any(-1).sum())
+            ok = ok and info["unsorted_rows"] == 0
         else:
             ok, info = compare_rows(got, want, TOL_COMP if name == "fine_composite_t"
                                     else TOL_RAW)
         ms = cuda_ms(lambda: kern(*a, **k), reps=7)
         plain_ms = cuda_ms(lambda: plain(*a, **k), reps=3, warmup=1)
-    flops, nbytes = work(name, a)
-    bound = max(flops / PEAK_BF16, nbytes / HBM_BYTES_S) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16 >= nbytes / HBM_BYTES_S else "bytes"
+    bound_ms, bound_by = bound(name, a)
     mode = "static" if spec.static else ("fine" if spec.fine else "sigma")
     shape = f"N={a[1].shape[0]} S={S} D={spec.D} W={spec.W} F={spec.F} {mode}"
+    if name == "proposal_z_rows":
+        shape += f" S_f={a[5]}"
     case = dict(name=name, asset=asset, schedule=sched, shape=shape, **info, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     log(f"[kernels] {name:16s} {asset:30s} {sched:10s} {shape}: "
         f"{json.dumps(info)} ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"bound_ms={bound:.4f} ({bound_by})")
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version ({asset}, "
                          f"{sched}, {shape}): {info}")
@@ -356,7 +393,7 @@ def phase_kernels(device):
                          ("nerfh_synthetic_301_w256.npz", 256)):
         cfg, model, params = load_model(asset, width, device)
         settings = render_settings(cfg, scene.near, scene.far, test=True)
-        runs = [("exact", dict(), True), ("culled", CULLED, True)]
+        runs = [("exact", dict(), True), ("culled", CULLED, True), ("mono", MONO, True)]
         if width == 128:
             runs.append(("coarse-net", dict(), False))
         for sched, kw, use_prop in runs:
@@ -446,6 +483,201 @@ def phase_render(device):
     return result
 
 
+def render_chunks(fast, settings, ro, rd, hist, **kw):
+    """render_rays_fast over CHUNK-ray chunks; the rgb/acc/depth rows."""
+    import torch
+
+    from dfnet_tpu_torch.render.fast import render_rays_fast
+
+    outs = [render_rays_fast(fast, ro[i:i + CHUNK], rd[i:i + CHUNK], hist, settings,
+                             **kw) for i in range(0, ro.shape[0], CHUNK)]
+    return torch.cat([torch.cat([o["rgb"].t(), o["acc"][None], o["depth"][None]])
+                      for o in outs], 1)
+
+
+def phase_mono(device):
+    """The mono schedule against the two-kernel blended one on the trained
+    W=128 asset: launches, agreement, val PSNR and rays/s."""
+    import torch
+
+    from dfnet_tpu_torch.data.loader import load_scene
+    from dfnet_tpu_torch.models.factory import render_settings
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.render.fast import FastNeRFH
+    from dfnet_tpu_torch.render.rays import get_rays
+
+    cfg, model, params = load_model("nerfh_synthetic_301.npz", 128, device)
+    ro, rd, scene = val_rays(N_RAYS, device)
+    settings = render_settings(cfg, scene.near, scene.far, test=True)
+    fast = FastNeRFH.pack(params, model)
+    hist = torch.zeros((1, cfg.hist_bin), dtype=torch.int32, device=device)
+    val = load_scene(cfg).val                  # the stage-1 CLI's 4 val views
+    result, rows = {}, {}
+    for sched, kw in (("blended", BLENDED), ("mono", MONO)):
+        render_chunks(fast, settings, ro[:CHUNK], rd[:CHUNK], hist, **kw)   # warm
+        torch.cuda.synchronize()
+        nk.reset_launches()
+        t0 = time.perf_counter()
+        rows[sched] = render_chunks(fast, settings, ro, rd, hist, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(nk.LAUNCHES)
+        psnr = []
+        for pose, h, img in zip(val.poses, val.hists, val.images):
+            o, d = get_rays(scene.H, scene.W, scene.focal,
+                            torch.as_tensor(pose, device=device))
+            rgb = render_chunks(fast, settings, o.reshape(-1, 3), d.reshape(-1, 3),
+                                torch.as_tensor(h, device=device)[None], **kw)[:3].t()
+            mse = torch.mean((rgb - torch.as_tensor(img, device=device).reshape(-1, 3)) ** 2)
+            psnr.append(-10.0 * float(torch.log10(mse)))
+        result[sched] = dict(rays_per_s=N_RAYS / dt, seconds=dt, launches=launches,
+                             val_psnr=float(np.mean(psnr)))
+        log(f"[mono] {sched}: {N_RAYS} rays in {dt:.3f} s = {N_RAYS / dt:.1f} rays/s, "
+            f"val PSNR {np.mean(psnr):.4f} dB, launches {launches}")
+    ok, info = compare_rows(rows["mono"], rows["blended"], TOL_COMP)
+    log(f"[mono] mono against blended (rgb, acc, depth rows): {json.dumps(info)}")
+    # the schedule rule: under lindisp the sampler cannot serve, and a mono
+    # call takes the two-kernel path
+    nk.reset_launches()
+    render_chunks(fast, dataclasses.replace(settings, lindisp=True), ro[:CHUNK],
+                  rd[:CHUNK], hist, **MONO)
+    gated = dict(nk.LAUNCHES)
+    log(f"[mono] mono=True under lindisp: launches {gated}")
+    if gated["proposal_z_rows"] or gated["fine_composite_t"] or not gated["fine_raw_t"]:
+        raise SystemExit(f"a mono call under lindisp did not take the two-kernel path: "
+                         f"{gated}")
+    ml = result["mono"]["launches"]
+    if ml["proposal_z_rows"] <= 0 or ml["fine_composite_t"] <= 0:
+        raise SystemExit(f"the mono schedule did not launch its kernels: {ml}")
+    if ml["coarse_sigma_t"] or ml["fine_raw_t"]:
+        raise SystemExit(f"the mono schedule launched a sweep kernel: {ml}")
+    if not ok:
+        raise SystemExit(f"mono and blended renders disagree: {info}")
+    gap = result["mono"]["val_psnr"] - result["blended"]["val_psnr"]
+    if not abs(gap) <= PSNR_TOL_DB:
+        raise SystemExit(f"mono val PSNR is {gap:+.4f} dB from the blended schedule's")
+    result["agreement"] = info
+    return result
+
+
+def phase_frozen(device):
+    """The frozen-NeRF service on the trained asset: kernel pre-renders with
+    tinyimg off and on, their agreement with the plain renderer, and the
+    pose gradient on the card against the CPU."""
+    import torch
+
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.loader import load_scene
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.training.checkpoints import load_pytree, save_pytree
+    from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
+
+    tree, _ = load_pytree(str(ROOT / "assets" / "nerfh_synthetic_301.npz"))
+    out = {}
+    with tempfile.TemporaryDirectory() as base:
+        save_pytree(os.path.join(base, "nerfh", "000301.npz"), {"params": tree},
+                    global_step=301)
+        argv = ["--dataset_type", "synthetic", "--NeRFH", "--encode_hist",
+                "--basedir", base, "--expname", "nerfh"]
+        sc = load_scene(parse_args(argv))
+
+        def frozen(*flags, dev=device):
+            cfg = parse_args(argv + list(flags) + ["--device", str(dev)])
+            return FrozenNeRF.from_experiment(cfg, sc.hwf, sc.near, sc.far,
+                                              sc.world_setup)
+
+        for tag, flags in (("full", ()), ("tinyimg", ("--tinyimg",))):
+            nerf = frozen(*flags)
+            if not nerf.uses_fast_render:
+                raise SystemExit("FrozenNeRF did not take the kernel render path")
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            imgs = nerf.prerender_views(sc.val.poses, sc.val.hists)
+            dt = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+            psnr = float(np.mean([-10 * np.log10(np.mean((a - b) ** 2))
+                                  for a, b in zip(imgs, sc.val.images)]))
+            log(f"[frozen] prerender_views ({tag}): {len(imgs)} views of "
+                f"{imgs.shape[1:]} in {dt:.3f} s, val PSNR {psnr:.4f} dB, "
+                f"launches {launches}")
+            if imgs.shape != sc.val.images.shape or not np.isfinite(imgs).all():
+                raise SystemExit(f"prerender_views ({tag}) gave {imgs.shape}")
+            if launches["coarse_sigma_t"] <= 0 or launches["fine_raw_t"] <= 0:
+                raise SystemExit(f"prerender_views ({tag}) did not launch the sweeps")
+            out[tag] = dict(seconds=dt, val_psnr=psnr, launches=launches)
+        # kernels against the plain renderer, both placing samples with the
+        # coarse net (the plain renderer has no proposal placement)
+        nerf = frozen("--proposal_render", "false")
+        with torch.no_grad():
+            got = torch.stack([nerf.render_at_pose(p, h)
+                               for p, h in zip(sc.val.poses, sc.val.hists)])
+            want = torch.stack([nerf.render_fn(nerf.params, torch.as_tensor(
+                p, device=device), torch.as_tensor(h, device=device))
+                for p, h in zip(sc.val.poses, sc.val.hists)])
+        ok, info = compare_rows(got, want, TOL_COMP)
+        log(f"[frozen] kernel render_at_pose against plain render_fn: {json.dumps(info)}")
+        if not ok:
+            raise SystemExit(f"FrozenNeRF kernel renders disagree with render_fn: {info}")
+        out["agreement"] = info
+        # d(photometric loss)/d(pose) through render_fn, card and CPU
+        grads = []
+        for dev in (device, torch.device("cpu")):
+            nerf = frozen("--tinyimg", dev=dev)
+            pose = torch.tensor(sc.val.poses[0], device=dev, requires_grad=True)
+            rgb = nerf.render_fn(nerf.params, pose,
+                                 torch.as_tensor(sc.val.hists[0], device=dev))
+            loss = torch.mean((rgb - torch.as_tensor(sc.val.images[1], device=dev)) ** 2)
+            loss.backward()
+            grads.append(pose.grad.cpu().numpy())
+        g, c = grads
+        scale = float(np.abs(c).max())
+        rel = float(np.abs(g - c).max()) / max(scale, 1e-30)
+        log(f"[frozen] pose grad: card {g.ravel().tolist()}, |card - cpu| / scale {rel:.3e}")
+        if not (np.isfinite(g).all() and np.abs(g).max() > 0 and scale > 0
+                and rel <= TOL_COMP):
+            raise SystemExit(f"pose gradient on the card is not within {TOL_COMP} of "
+                             f"the CPU's: {g} vs {c}")
+        out["pose_grad_rel_err"] = rel
+    return out
+
+
+def phase_probe(device):
+    """The layer-stack probe at W=256 and W=128: kernels against plain
+    (not counted), then the timed probe run (counted)."""
+    import torch
+
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.scripts import bench_int8_wide as probe
+
+    out = {}
+    for W in (256, 128):
+        checks = probe.check(W, PROBE_POINTS, device)
+        nk.reset_launches()
+        res = probe.run(W, PROBE_POINTS, device)
+        launches = {k: nk.LAUNCHES[k] for k in ("mlp_stack_bf16", "mlp_stack_int8")}
+        if min(launches.values()) <= 0:
+            raise SystemExit(f"the probe did not launch both kernels: {launches}")
+        out[W] = dict(run=res, checks=checks, launches=launches)
+    # each kernel's case at the probe's widest shape (W=256, D=6)
+    D = max(probe.DEPTHS)
+    cases = []
+    for dtype in probe.DTYPES:
+        tdt = torch.int8 if dtype == "int8" else torch.bfloat16
+        shapes = (torch.empty((PROBE_POINTS, 256), dtype=tdt, device="meta"),
+                  torch.empty((D, 256, 256), dtype=tdt, device="meta"))
+        bound_ms, bound_by = bound(f"mlp_stack_{dtype}", shapes)
+        cases.append(dict(
+            name=f"mlp_stack_{dtype}", asset="probe data", schedule="probe",
+            shape=f"P={PROBE_POINTS} W=256 D={D}",
+            max_abs_err=max(c["max_abs_err"] for c in out[256]["checks"][dtype].values()),
+            ms=out[256]["run"][dtype]["ms"][D],
+            plain_ms=out[256]["checks"][dtype][D]["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by))
+    launches = {k: sum(o["launches"][k] for o in out.values())
+                for k in ("mlp_stack_bf16", "mlp_stack_int8")}
+    return dict(widths=out, cases=cases, launches=launches)
+
+
 def phase_train(device):
     """Stage-1 training through the port's CLI at the shipped config."""
     import torch
@@ -529,6 +761,7 @@ def step_breakdown(tr, reps: int = 10):
     from dfnet_tpu_torch.ops import nerf_kernels as nk
     from dfnet_tpu_torch.render.fused_train import render_rays_train_fused
     from dfnet_tpu_torch.render.volume import composite_nerfw
+    from dfnet_tpu_torch.utils.timing import cuda_ms
 
     lr = tr.cfg.lrate
     torch.cuda.synchronize()
@@ -591,10 +824,20 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
 
-    cases = phase_kernels(device)
-    e2e_launches = phase_e2e(device)
-    render = phase_render(device)
-    train_result = phase_train(device)
+    def timed(phase, *a):
+        t = time.perf_counter()
+        out = phase(*a)
+        log(f"[time] {phase.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    cases = timed(phase_kernels, device)
+    e2e_launches = timed(phase_e2e, device)
+    render = timed(phase_render, device)
+    mono = timed(phase_mono, device)
+    frozen = timed(phase_frozen, device)
+    probe = timed(phase_probe, device)
+    cases += probe["cases"]
+    train_result = timed(phase_train, device)
 
     # each kernel's row: its case on the main path it was ported for, and
     # the launches of every main path, each counted from 0 over its run
@@ -602,9 +845,18 @@ def main() -> int:
                  "fine_raw_t": ("nerfh_synthetic_301.npz", "exact", "render_test"),
                  "fine_composite_t": ("nerfh_synthetic_301.npz", "culled",
                                       "render_culled"),
-                 "raw_bwd_t": ("nerfh_synthetic_301.npz", "train-fine", "train")}
+                 "raw_bwd_t": ("nerfh_synthetic_301.npz", "train-fine", "train"),
+                 "proposal_z_rows": ("nerfh_synthetic_301.npz", "mono", "render_mono"),
+                 "mlp_stack_bf16": ("probe data", "probe", "probe"),
+                 "mlp_stack_int8": ("probe data", "probe", "probe")}
+    empty = {k: 0 for k in REPLACES}
     path_launches = {"render_test": e2e_launches,
                      "render_culled": render["culled_fused"]["launches"],
+                     "render_mono": mono["mono"]["launches"],
+                     "frozen_prerender": {k: frozen["full"]["launches"][k]
+                                          + frozen["tinyimg"]["launches"][k]
+                                          for k in REPLACES},
+                     "probe": {**empty, **probe["launches"]},
                      "train": train_result["launches"]}
     kernels = []
     for name, (asset, sched, path) in main_case.items():
@@ -619,6 +871,12 @@ def main() -> int:
             "launches_by_path": {p: v[name] for p, v in path_launches.items()},
             "cases": [x for x in cases if x["name"] == name]})
     log(json.dumps({"render": {k: v["rays_per_s"] for k, v in render.items()}}))
+    log(json.dumps({"mono": {k: {m: v[m] for m in ("rays_per_s", "val_psnr")}
+                             for k, v in mono.items() if k != "agreement"}}))
+    log(json.dumps({"frozen": frozen}))
+    log(json.dumps({"probe": {W: {d: {m: o["run"][d][m] for m in ("marginal_ms", "rate")}
+                                  for d in ("bf16", "int8")} | {"ratio": o["run"]["ratio"]}
+                              for W, o in probe["widths"].items()}}))
     log(json.dumps({"train": train_result}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -21,24 +21,27 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dfnet_tpu_torch"
-KERNEL_SOURCES = ("coarse_sigma", "fine_raw", "fine_composite", "raw_bwd")
+KERNEL_SOURCES = ("coarse_sigma", "fine_raw", "fine_composite", "raw_bwd", "proposal_z",
+                  "mlp_stack")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each library's entry point
+# C signature of each entry point, by its name: `dfn_<source>` unless a
+# source has several (mlp_stack.cu)
 SIGNATURES = {
-    "coarse_sigma": ("dfn_coarse_sigma",
-                     [_P, _P, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "fine_raw": ("dfn_fine_raw",
-                 [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
-    "fine_composite": ("dfn_fine_composite",
-                       [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "raw_bwd": ("dfn_raw_bwd",
-                [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
-                 _P, _I, _I, _P, _I, _P, _P, _P, _P]),
+    "dfn_coarse_sigma": [_P, _P, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                         _P],
+    "dfn_fine_raw": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dfn_fine_composite": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "dfn_raw_bwd": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                    _P, _I, _I, _P, _I, _P, _P, _P, _P],
+    "dfn_proposal_z": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _I, _I,
+                       _I, _I, _P, _P],
+    "dfn_mlp_stack_bf16": [_P, _P, _I, _I, _I, _P, _P],
+    "dfn_mlp_stack_int8": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -109,15 +112,16 @@ def ptxas_report(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str):
-    """The C entry point of csrc/<name>.cu, building it if needed."""
+def load(name: str, entry: str = ""):
+    """The C entry point `entry` (default `dfn_<name>`) of csrc/<name>.cu,
+    building the library if needed."""
     with _lock:
         if name not in _loaded:
             path = build_all([name])[name]
             _loaded[name] = ctypes.CDLL(str(path))
         lib = _loaded[name]
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
+    entry = entry or f"dfn_{name}"
+    fn = getattr(lib, entry)
+    fn.argtypes = SIGNATURES[entry]
     fn.restype = ctypes.c_int
     return fn

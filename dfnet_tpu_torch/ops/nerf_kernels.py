@@ -1,7 +1,7 @@
 """NeRF-H MLP sweep kernels for Hopper: packing, wrappers, plain versions.
 
-Port of the kernels of dfnet_tpu/ops/nerf_kernels.py that the test-time
-render and the stage-1 train step run:
+Port of the kernels of dfnet_tpu/ops/nerf_kernels.py (the layer-stack
+probe's pair is in ops/mlp_stack.py):
 
   coarse_sigma_t    <- nerf_kernels.py::coarse_sigma_t (_coarse_kernel_t)
   fine_raw_t        <- nerf_kernels.py::fine_raw_t (_fine_kernel_t), with
@@ -11,6 +11,9 @@ render and the stage-1 train step run:
                        (_fine_composite_kernel_t)
   raw_bwd_t         <- nerf_kernels.py::raw_bwd_t (_bwd_kernel_t): the
                        backward of fine_raw_t
+  proposal_z_rows   <- nerf_kernels.py::proposal_z_rows (_sample_kernel_t):
+                       the mono path's sampler, proposal sweep to sorted
+                       fine z, as (N, S_f) rows (not the TPU's (8, N*S_f))
 
 Each wrapper launches its hand-written CUDA kernel (`csrc/*.cu`, built by
 `ops/build.py`) for CUDA tensors and counts the launch in `LAUNCHES`; for
@@ -58,7 +61,8 @@ N_COMP = 8     # composite rows: rgb 0:3, acc 3, static depth 4, static rgb 5:8
 
 # launches of each kernel, counted by its wrapper (reset_launches() zeroes)
 LAUNCHES = {"coarse_sigma_t": 0, "fine_raw_t": 0, "fine_composite_t": 0,
-            "raw_bwd_t": 0}
+            "raw_bwd_t": 0, "proposal_z_rows": 0, "mlp_stack_bf16": 0,
+            "mlp_stack_int8": 0}
 
 
 def reset_launches() -> None:
@@ -453,6 +457,22 @@ def fine_composite_plain(packed: Dict, rays_o, rays_d, z_all, dpt,
     return _composite_plain(raw, z_all)
 
 
+def proposal_z_plain(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
+                     S_f: int, near: float, far: float, lam: float):
+    """Plain version of proposal_z_rows: the sigma sweep at S uniform z,
+    softplus, composite weights (1e2 terminal delta) and the blended-CDF
+    draw of render/fast.py::sample_pdf_blend -> (N, S_f) sorted z."""
+    from dfnet_tpu_torch.render.fast import _shifted_cumprod_lanes, sample_pdf_blend
+
+    sigma = Fn.softplus(coarse_sigma_plain(packed, rays_o, rays_d, spec, S, near, far))
+    z = _uniform_z(S, near, far, False, rays_o.device).expand(rays_o.shape[0], S)
+    deltas = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e2)], -1)
+    alphas = 1.0 - torch.exp(-deltas * sigma)
+    weights = alphas * _shifted_cumprod_lanes(alphas)
+    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
+    return sample_pdf_blend(z_mid, weights[:, 1:-1], S_f, lam).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -579,6 +599,36 @@ def fine_composite_t(packed: Dict, rays_o, rays_d, z_all, dpt,
     rc = build.load("fine_composite")(*args, out.data_ptr(), _stream(out))
     _raise_on(rc, "fine_composite_t")
     LAUNCHES["fine_composite_t"] += 1
+    return out
+
+
+def proposal_z_rows(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
+                    S_f: int, near: float, far: float, lam: float) -> torch.Tensor:
+    """The mono path's sampler: the sigma-only (proposal) sweep at S
+    uniform z (linear in depth), its composite weights and the inverse of
+    the blended CDF (1-lam) cdf + lam uniform at S_f evenly spaced u ->
+    (N, S_f) float32 SORTED fine z, fine_composite_t's z input."""
+    if not _on_cuda(rays_o):
+        return proposal_z_plain(packed, rays_o, rays_d, spec, S, S_f, near, far, lam)
+    from dfnet_tpu_torch.ops import build
+
+    if spec.fine or spec.static:
+        raise ValueError("proposal_z_rows takes a sigma-only pack")
+    N = rays_o.shape[0]
+    if S < 3 or S_f < 2 or N * S_f >= 2 ** 31:
+        raise ValueError(f"bad sampler size N={N} S={S} S_f={S_f}")
+    _check_common(packed, spec, rays_o, rays_d, S)
+    out = torch.empty((N, S_f), device=rays_o.device, dtype=torch.float32)
+    if N == 0:
+        return out
+    rc = build.load("proposal_z")(
+        rays_o.data_ptr(), rays_d.data_ptr(), N, S, S_f, float(near), float(far),
+        float(np.float32(1.0 / (S - 1))), float(np.float32(1.0 / (S_f - 1))),
+        float(np.float32((far - near) / (S - 1))), float(lam),
+        packed["w"].data_ptr(), packed["b"].data_ptr(), packed["freqs"].data_ptr(),
+        spec.D, spec.W, spec.skip, spec.F, out.data_ptr(), _stream(out))
+    _raise_on(rc, "proposal_z_rows")
+    LAUNCHES["proposal_z_rows"] += 1
     return out
 
 

@@ -15,9 +15,13 @@ Importance-sampling modes (as in the JAX package):
   - culled (cull_q > 0): the blended draw restricted to each ray's
     [q, 1-q] CDF-quantile interval, usually with fewer fine samples;
   - fuse_composite: the fine sweep and the NeRF-W composite in one kernel
-    (fine_composite_t).
-The JAX package's `mono` path needs the in-kernel sampler
-(proposal_z_rows), which is not ported yet.
+    (fine_composite_t);
+  - mono (opt-in, blended only): sampling (proposal sweep -> weights ->
+    blended inverse CDF, proposal_z_rows) and the fine sweep + composite
+    (fine_composite_t) run as two kernel launches with no per-point tensor
+    ops between them. It needs a packed proposal, exact_union=False and
+    lindisp=False; otherwise the call takes the two-kernel path, as in the
+    JAX package.
 """
 
 from __future__ import annotations
@@ -201,6 +205,17 @@ def _composited(out: torch.Tensor, white_bkgd: bool) -> Dict:
             "rgb_static_only": out[5:8].t()}
 
 
+def _per_ray_conditioning(fast: FastNeRFH, rays_d, hist) -> torch.Tensor:
+    """(N, W) per-ray rows of the fine net (view direction, appearance and
+    transient embeddings). hist may be (1, HB): one histogram for every
+    ray, gathered once."""
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    a_emb = lookup_hist_embedding(fast.params["embedding_a"], hist)
+    t_emb = lookup_hist_embedding(fast.params["embedding_t"], hist)
+    return nk.per_ray_row(fast.params["fine"], fast.model.cfg_fine,
+                          fast.model.embed_dir(viewdirs), a_emb, t_emb)
+
+
 @torch.no_grad()
 def render_rays_fast(fast: FastNeRFH, rays_o, rays_d, hist,
                      settings: RenderSettings, exact_union: bool = True,
@@ -212,22 +227,34 @@ def render_rays_fast(fast: FastNeRFH, rays_o, rays_d, hist,
     render_rays (test settings) up to bf16 kernel rounding when
     exact_union=True. cull_q > 0 selects the culled sampler, usually with
     n_fine < N_samples + N_importance; fuse_composite runs the fine sweep
-    and the composite as one kernel."""
-    if mono:
-        raise NotImplementedError(
-            "mono=True needs the in-kernel sampler proposal_z_rows, which is "
-            "not ported yet (ROADMAP.md, Queue 2)")
+    and the composite as one kernel. mono=True (with a packed proposal,
+    exact_union=False and lindisp=False) samples in proposal_z_rows and
+    composites in fine_composite_t: N_samples + N_importance fine samples,
+    cull_q and n_fine unused, as in the JAX package."""
     if cull_q <= 0.0 and exact_union and (n_fine or n_place):
         raise ValueError(
             "n_fine/n_place (render_fine_total/render_place_samples) "
             "require cull_q > 0 or exact_union=False; the exact-union "
             "schedule always renders N_samples+N_importance samples")
-    model = fast.model
     rays_o = rays_o.float().contiguous()
     rays_d = rays_d.float().contiguous()
-    n = rays_o.shape[0]
     S = n_place or settings.N_samples
-    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    # the sampling kernel builds a linear-in-z uniform grid only: under
+    # lindisp (or without a proposal, or for the exact union) the call
+    # takes the two-kernel path, as the JAX package's schedule does
+    mono_ok = (fast.packed_proposal is not None and not exact_union
+               and not settings.lindisp)
+    if mono and mono_ok:
+        n_total = S + settings.N_importance
+        dpt = _per_ray_conditioning(fast, rays_d, hist)
+        z_all = nk.proposal_z_rows(fast.packed_proposal, rays_o, rays_d,
+                                   fast.spec_proposal, S, n_total,
+                                   float(settings.near), float(settings.far),
+                                   lam=S / n_total)
+        out = nk.fine_composite_t(fast.packed_fine, rays_o, rays_d, z_all, dpt,
+                                  fast.spec_fine)
+        return _composited(out, settings.white_bkgd)
+    n = rays_o.shape[0]
 
     # sample placement: the trained proposal sampler when packed (same
     # uniform grid, much cheaper sigma sweep), else the coarse NeRF
@@ -262,12 +289,7 @@ def render_rays_fast(fast: FastNeRFH, rays_o, rays_d, hist,
         z_all = sample_pdf_blend(z_mid, weights[..., 1:-1], n_total,
                                  lam=S / n_total)
     z_all = z_all.contiguous()
-
-    cfgf = model.cfg_fine
-    dir_emb = model.embed_dir(viewdirs)
-    a_emb = lookup_hist_embedding(fast.params["embedding_a"], hist)
-    t_emb = lookup_hist_embedding(fast.params["embedding_t"], hist)
-    dpt = nk.per_ray_row(fast.params["fine"], cfgf, dir_emb, a_emb, t_emb)
+    dpt = _per_ray_conditioning(fast, rays_d, hist)
 
     if fuse_composite:
         out = nk.fine_composite_t(fast.packed_fine, rays_o, rays_d, z_all,

@@ -236,14 +236,23 @@ def gather_image(outs, n: int, H: int, W: int) -> Dict:
     return res
 
 
-@torch.no_grad()
-def render_image(params: Dict, model: NeRFHModel, c2w: torch.Tensor,
-                 hist: torch.Tensor, H: int, W: int, focal: float,
-                 settings: RenderSettings, chunk: int = 1024 * 8) -> Dict:
+def render_image_grad(params: Dict, model: NeRFHModel, c2w: torch.Tensor,
+                      hist: torch.Tensor, H: int, W: int, focal: float,
+                      settings: RenderSettings, chunk: int = 1024 * 8) -> Dict:
     """Full-image render: flatten rays, pad to a chunk multiple and render
-    fixed-size chunks in turn (the reference's batchify_rays)."""
+    fixed-size chunks in turn (the reference's batchify_rays). Autograd
+    stays on: the result is differentiable in c2w and the params (stage
+    3's pose gradients)."""
     n, ro, rd = chunked_rays(H, W, focal, c2w, chunk)
     hist_b = hist[None].expand((chunk,) + hist.shape)
     outs = [render_rays(params, model, o, d, hist_b, settings)
             for o, d in zip(ro, rd)]
     return gather_image(outs, n, H, W)
+
+
+@torch.no_grad()
+def render_image(params: Dict, model: NeRFHModel, c2w: torch.Tensor,
+                 hist: torch.Tensor, H: int, W: int, focal: float,
+                 settings: RenderSettings, chunk: int = 1024 * 8) -> Dict:
+    """render_image_grad without autograd (evaluation renders)."""
+    return render_image_grad(params, model, c2w, hist, H, W, focal, settings, chunk)

@@ -33,7 +33,7 @@ def test_render_test_on_cpu_prints_psnr(tmp_path, capsys):
     assert pngs[:3] == ["000.png", "000_GT.png", "000_disp.png"]
 
 
-def test_training_is_not_ported_yet(tmp_path):
+def test_spiral_and_video_renders_refuse(tmp_path):
     """Training is ported; the spiral and video renders of stage 1 are not,
     and refuse before anything loads."""
     argv = ["--config", "configs/config_synthetic.txt", "--basedir", str(tmp_path),

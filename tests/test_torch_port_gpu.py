@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions on a card.
+"""The port's CUDA kernels against their plain PyTorch versions on a card:
+coarse_sigma_t, fine_raw_t (fine and static packs), fine_composite_t,
+raw_bwd_t, proposal_z_rows (the mono path's sampler) and the layer-stack
+probe's mlp_stack_bf16 / mlp_stack_int8.
 
 Imports neither JAX nor dfnet_tpu, so it also runs on a machine that has
 only PyTorch for CUDA:
@@ -11,7 +14,11 @@ pre-activation outputs 2e-2, composited outputs 3e-2 (the kernel and the
 plain version sum their float32 products in different orders, so a bf16
 activation can round the other way); gradients 3e-2 times each packed
 entry's largest magnitude (bf16 cotangents, and the kernel sums over its
-tiles and blocks in another order)."""
+tiles and blocks in another order); fine z samples 2e-3, every row sorted;
+the int8 layer stack exactly (its plain version sums integers in float32,
+exact below 2^24), the bf16 one under ops/mlp_stack.py's
+bf16_stack_agreement (at most 1% of outputs differ at all, each within two
+bf16 steps plus 1/8 of the output's RMS)."""
 
 import numpy as np
 import pytest
@@ -19,7 +26,9 @@ import torch
 
 from dfnet_tpu_torch.models.embedder import get_embedder
 from dfnet_tpu_torch.models.nerfw import NeRFWConfig, init_nerfw_params, init_sigma_mlp
+from dfnet_tpu_torch.ops import mlp_stack as ms
 from dfnet_tpu_torch.ops import nerf_kernels as nk
+from dfnet_tpu_torch.scripts import bench_int8_wide as probe
 
 NEAR, FAR = 0.5, 3.5
 
@@ -67,7 +76,11 @@ def test_coarse_sigma_kernel_matches_plain(cuda, D, W, skip, F, S, lindisp):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,W,skip,S", [(4, 64, 2, 24), (2, 256, 1, 128)])
+@pytest.mark.parametrize("D,W,skip,S", [
+    (4, 64, 2, 24),
+    (2, 128, 1, 128),                # the mono path's fine_composite_t: one ray a block
+    (2, 256, 1, 128),
+])
 def test_fine_kernels_match_plain(cuda, D, W, skip, S):
     cfg = NeRFWConfig(D=D, W=W, skips=(skip,), encode_appearance=True,
                       encode_transient=True)
@@ -85,8 +98,8 @@ def test_fine_kernels_match_plain(cuda, D, W, skip, S):
     nk.reset_launches()
     _close(nk.fine_raw_t, nk.fine_raw_plain, args, 2e-2)
     _close(nk.fine_composite_t, nk.fine_composite_plain, args, 3e-2)
-    assert nk.LAUNCHES == {"coarse_sigma_t": 0, "fine_raw_t": 1,
-                           "fine_composite_t": 1, "raw_bwd_t": 0}
+    assert nk.LAUNCHES == {**dict.fromkeys(nk.LAUNCHES, 0), "fine_raw_t": 1,
+                           "fine_composite_t": 1}
 
 
 @pytest.mark.gpu
@@ -155,3 +168,53 @@ def test_raw_bwd_kernel_matches_plain(cuda, D, W, skip, S, static):
     again = nk.raw_bwd_t(*args)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,F,S,S_f", [
+    (64, 4, 64, 128),                # the proposal net at the mono path's shape
+    (128, 4, 32, 96),                # a wide proposal, two rays a block
+])
+def test_proposal_z_kernel_matches_plain(cuda, W, F, S, S_f):
+    cfg = NeRFWConfig(D=2, W=W, skips=(), in_xyz=6 * F + 3)
+    params = init_sigma_mlp(torch.Generator().manual_seed(W), cfg, cuda)
+    emb = get_embedder(F)
+    packed = nk.pack_coarse_t(params, cfg, emb)
+    spec = nk.spec_of(cfg, emb, fine=False)
+    ro, rd = _rays(37, seed=W + 3, device=cuda)              # ragged against every tile
+    args = (packed, ro, rd, spec, S, S_f, NEAR, FAR, S / S_f)
+    nk.reset_launches()
+    got = nk.proposal_z_rows(*args)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["proposal_z_rows"] == 1
+    want = nk.proposal_z_plain(*args)
+    assert got.shape == (37, S_f) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+    assert (got[:, 1:] >= got[:, :-1]).all()
+    assert (got >= NEAR).all() and (got <= FAR).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [128, 256])
+def test_mlp_stack_kernels_match_plain(cuda, W):
+    # ragged against 64-point tiles
+    P, D = 1000, 2
+    assert not torch.backends.cuda.matmul.allow_tf32
+    nk.reset_launches()
+    x, ws = ms.probe_inputs("bf16", W, P, 6, cuda)
+    for d in (D, 6):
+        got = ms.mlp_stack_bf16(x, ws[:d])
+        torch.cuda.synchronize()
+        agree = ms.bf16_stack_agreement(got, ms.mlp_stack_bf16_plain(x, ws[:d]))
+        assert agree["ok"], (d, agree)
+    # int8 on the probe's weights (every output zero) and on weights that
+    # keep the stack alive, at D=2 and D=6
+    x, ws = ms.probe_inputs("int8", W, P, 6, cuda)
+    alive = probe.alive_int8_weights(ws.shape, cuda)
+    for w in (ws, alive):
+        for d in (D, 6):
+            got = ms.mlp_stack_int8(x, w[:d])
+            torch.cuda.synchronize()
+            assert torch.equal(got, ms.mlp_stack_int8_plain(x, w[:d]))
+        assert (got > 0).any() == (w is alive)
+    assert nk.LAUNCHES["mlp_stack_bf16"] == 2 and nk.LAUNCHES["mlp_stack_int8"] == 4

@@ -147,5 +147,14 @@ def test_wrappers_count_only_kernel_launches():
     nk.coarse_sigma_t(nk.pack_coarse_t(tp, tc, get_embedder(4)),
                       torch.tensor(ro), torch.tensor(rd),
                       nk.spec_of(tc, get_embedder(4), fine=False), 8, NEAR, FAR)
+    nk.proposal_z_rows(nk.pack_coarse_t(tp, tc, get_embedder(4)),
+                       torch.tensor(ro), torch.tensor(rd),
+                       nk.spec_of(tc, get_embedder(4), fine=False), 8, 12, NEAR, FAR, 0.5)
+    from dfnet_tpu_torch.ops import mlp_stack as ms
+
+    ms.mlp_stack_int8(*ms.probe_inputs("int8", 32, 8, 2, "cpu"))
+    ms.mlp_stack_bf16(*ms.probe_inputs("bf16", 32, 8, 2, "cpu"))
     assert nk.LAUNCHES == {"coarse_sigma_t": 0, "fine_raw_t": 0,
-                           "fine_composite_t": 0, "raw_bwd_t": 0}
+                           "fine_composite_t": 0, "raw_bwd_t": 0,
+                           "proposal_z_rows": 0, "mlp_stack_bf16": 0,
+                           "mlp_stack_int8": 0}
