@@ -19,7 +19,11 @@ Phases (any failure exits non-zero):
                within 10x those tolerances; gradients within 3e-2 x each
                packed entry's largest magnitude (TOL_GRAD; the per-ray d_dpt
                under the FLIP_SHARE rule); time kernel and plain version
-               with CUDA events;
+               with CUDA events; for raw_bwd_t also each of its three
+               launches (stash, wgrad, reduce), the stash's bytes and their
+               write-once read-once floor, and the summed time of one
+               torch.matmul per weight-grad problem over the same stash
+               views (a yardstick the port never calls);
   3. e2e     — save assets/nerfh_synthetic_301.npz as a checkpoint and run
                the port's stage-1 CLI with --render_test at the shipped
                full-width config; the coarse_sigma_t and fine_raw_t launch
@@ -321,6 +325,26 @@ def compare_grads(got, want, spec, S):
                                n=a.numel()))
 
 
+def bwd_parts(a, k):
+    """raw_bwd_t's three launches timed one by one with CUDA events; the
+    stash's bytes, read from the tensor; and the yardstick: one
+    torch.matmul per problem of bwd_problems over the same stash views,
+    summed (bf16 operands, float32 sums), which the port never calls."""
+    import torch
+
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.utils.timing import cuda_ms
+
+    launches, _, stash = nk.raw_bwd_launches(*a, **k)
+    out = {f"{n}_ms": cuda_ms(fn, reps=5) for n, fn in launches}
+    N, S = a[3].shape
+    pairs = [(G, A) for G, A, _ in nk.bwd_problem_views(stash, a[-1], N, S)]
+    out["wgrad_matmul_ms"] = cuda_ms(lambda: [torch.matmul(G.t(), A) for G, A in pairs],
+                                     reps=5)
+    out["stash_bytes"] = stash.numel() * stash.element_size()
+    return out
+
+
 def measure(name, a, k, asset, sched):
     """One kernel call on the card against its plain version: agreement,
     CUDA-event times, the bound. Raises SystemExit on disagreement."""
@@ -356,9 +380,16 @@ def measure(name, a, k, asset, sched):
         shape += f" S_f={a[5]}"
     case = dict(name=name, asset=asset, schedule=sched, shape=shape, **info, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if name == "raw_bwd_t":
+        with torch.no_grad():
+            case["parts"] = bwd_parts(a, k)
+        torch.cuda.empty_cache()
     log(f"[kernels] {name:16s} {asset:30s} {sched:10s} {shape}: "
         f"{json.dumps(info)} ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+        f"bound_ms={bound_ms:.4f} ({bound_by})"
+        + (f" parts={json.dumps(case['parts'])} stash floor (written and read once "
+           f"at the HBM rate) {2 * case['parts']['stash_bytes'] / HBM_BYTES_S * 1e3:.4f} ms"
+           if "parts" in case else ""))
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version ({asset}, "
                          f"{sched}, {shape}): {info}")

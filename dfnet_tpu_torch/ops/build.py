@@ -29,15 +29,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each entry point, by its name: `dfn_<source>` unless a
-# source has several (mlp_stack.cu)
+# source has several (mlp_stack.cu, raw_bwd.cu)
 SIGNATURES = {
     "dfn_coarse_sigma": [_P, _P, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                          _P],
     "dfn_fine_raw": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "dfn_fine_composite": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "dfn_raw_bwd": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
-                    _P, _I, _I, _P, _I, _P, _P, _P, _P],
+    "dfn_raw_bwd_stash": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                          _P, _P, _P, _I, _P],
+    "dfn_raw_bwd_wgrad": [_P, _P, _P, _I, _L, _L, _I, _I, _P, _L, _P],
+    "dfn_raw_bwd_reduce": [_P, _I, _L, _I, _I, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "dfn_proposal_z": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _I, _I,
                        _I, _I, _P, _P],
     "dfn_mlp_stack_bf16": [_P, _P, _I, _I, _I, _P, _P],

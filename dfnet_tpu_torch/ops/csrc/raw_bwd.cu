@@ -1,4 +1,4 @@
-// raw_bwd_t: backward of fine_raw_t (fine or static pack).
+// raw_bwd_t: backward of fine_raw_t (fine or static pack), in three launches.
 //
 // Replaces dfnet_tpu/ops/nerf_kernels.py::raw_bwd_t (Pallas kernel
 // _bwd_kernel_t). Given the float32 cotangent g (rows, N, S) of
@@ -7,36 +7,45 @@
 // (float32) and the per-ray rows dpt (N, Wd) (float32); none for rays, z
 // or the PE frequencies (the stage-1 contract of the JAX package).
 //
-// Per tile of TP points (TP = 32 at W <= 128, 16 at W = 256):
-//   1. recompute the forward exactly as fine_raw_t does (same layer code),
-//      stashing every post-ReLU activation in shared memory as bf16: x0,
-//      the D trunk layers, the dt layer and (fine pack) the three
-//      transient layers;
-//   2. backpropagate from g through the heads (CUDA cores: at most 9
-//      rows), the transient chain, the dt layer, the trunk (skip layer
-//      split [x0 | h]) and layer 0. Each layer's cotangent is masked by its
-//      stashed activation > 0 and rounded to bf16 in the epilogue of the
-//      product that makes it; g itself is rounded to bf16 first. This is
-//      the JAX kernel's precision contract: bf16 operands, float32 sums;
-//   3. accumulate dW += g_pre^T . a_prev (WMMA, float32) and
-//      db += sum(g_pre) into this block's own float32 slab of all weight
-//      and bias grads, and write the tile's per-ray sums of the dt layer's
-//      cotangent (the d_dpt partials of the rays it touches).
-// The grid is persistent (one block per SM, each looping over tiles), so
-// the sums are deterministic: a second kernel adds the slabs in block
-// order and casts the weight grads to bf16, a third adds each ray's
-// d_dpt partials in tile order. The products are all computed here.
+// Precision contract (the JAX kernel's): g is rounded to bf16; each later
+// cotangent is masked by its stashed activation > 0 and rounded to bf16
+// before it becomes a matmul operand; every product sums in float32;
+// weight grads leave as bf16. No atomics: two calls give the same bits.
 //
-// Bound on the card: operations. At W=128, D=8 (skip 4), F=10 a point
-// costs ~3 forward passes of bf16 flop (recompute, input grads, weight
-// grads): ~9.6e5 (fine) / ~8.4e5 (static). Bytes per point are the 36 B
-// (fine) cotangent in and 12 B of rays/z; grads out are < 1 MB. Known
-// costs of this simple design: each tile reads and writes its block's
-// slab (~0.64 MB at W=128) once, and weights are read from L2 per 16x16
-// fragment, as in the forward kernels.
+// What bounds it on the H100: operations (~3 forward passes of bf16 flop
+// a point), but only if the weight-grad sums stay in registers over many
+// points and the weights reach the tensor cores from shared memory. The
+// TPU kernel kept a 1024-point tile's activations in VMEM and summed weight
+// grads across its sequential grid; a block here has 227 KB and runs in
+// parallel with the others. So the work is split:
 //
-// Shared memory at TP=32, W=128, D=8: ~124 KB (one block per SM); at
-// TP=16, W=256: ~117 KB. Both need the opt-in above 48 KB.
+//   1. bwd_stash (per 64-point tile, one tile a block): recomputes the
+//      forward exactly as fine_raw_t does, runs the cotangent chain (heads,
+//      transient chain, dt layer plus the sigma head's rank-1 share, trunk)
+//      and writes each weight matrix's bf16 input activation A_l and masked
+//      bf16 output cotangent G_l, and the bf16 g, to a point-major stash in
+//      device memory (16-byte stores). A block holds only x0, two activation
+//      tiles and two weight panels: each layer's weights stream through the
+//      panels in 64-wide slices (cp.async, double-buffered, padded rows, so
+//      a WMMA fragment read is conflict-free), ~94 KB at W=128 (two blocks,
+//      16 warps an SM) and ~164 KB at W=256 (one block). Masks for the input
+//      grads read A_{l-1} back from the stash, L2-hot.
+//   2. bwd_wgrad: a grouped split-K GEMM, dW_l = G_l^T A_l and db_l = sum G_l,
+//      over a table of problems built by ops/nerf_kernels.py::bwd_problems.
+//      One block per (chunk of points, problem, 128x128 output tile, so a
+//      W=128 layer reads its G and A once), chunks slowest so the blocks of
+//      one chunk share its stash rows in L2. The float32 sums stay in
+//      registers over the whole chunk (thousands of points); operand tiles
+//      stream through a 3-stage cp.async ring; the bias sums are an extra
+//      WMMA against a ones fragment. One float32 partial per chunk, in the
+//      packed layout. The stash is read about once: ~0.33 ms of HBM time
+//      at the shipped fine shape, the floor of this launch.
+//   3. bwd_reduce: sums the chunk partials in chunk order (bf16 d_w, float32
+//      d_b) and d_dpt[ray] = sum over the ray's samples of G_dt, in order.
+//
+// Stash: one bf16 [Pp, width] region per activation and cotangent (Pp = P
+// rounded up to 64; a dead row's G is zero), in the order of
+// ops/nerf_kernels.py::bwd_regions; the wrapper passes the region offsets.
 
 #include "nerf_mlp.cuh"
 
@@ -44,28 +53,35 @@ using namespace dfn;
 
 namespace {
 
-struct BwdLayout {
-  size_t x0, hs, dt0, ts, g0, g1, g16, pts, rz, ray, scratch, total;
+constexpr int BTP = 64;      // points per stash tile
+constexpr int KP = 64;       // weight panel width (reduction slice)
+constexpr int G_RAW = 16;    // columns of the bf16 g region
+constexpr int MAX_REGIONS = 2 * 16 + 10;
+
+struct Regions {
+  long long off[MAX_REGIONS];
+  int width[MAX_REGIONS];
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int TP, int K0, int W, int D) {
-  BwdLayout L;
-  const size_t b = sizeof(bf16);
-  size_t o = 0;
-  L.x0 = o;      o = align128(o + (size_t)TP * (K0 + PAD) * b);
-  L.hs = o;      o = align128(o + (size_t)D * TP * (W + PAD) * b);
-  L.dt0 = o;     o = align128(o + (size_t)TP * (W + PAD) * b);
-  L.ts = o;      o = align128(o + (size_t)3 * TP * (W / 2 + PAD) * b);
-  L.g0 = o;      o = align128(o + (size_t)TP * (W + PAD) * b);
-  L.g1 = o;      o = align128(o + (size_t)TP * (W + PAD) * b);
-  L.g16 = o;     o = align128(o + (size_t)TP * N_RAW * sizeof(float));
-  L.pts = o;     o = align128(o + (size_t)TP * 3 * sizeof(float));
-  L.rz = o;      o = align128(o + (size_t)TP * sizeof(float));
-  L.ray = o;     o = align128(o + (size_t)TP * sizeof(int));
-  L.scratch = o; o = align128(o + (size_t)NWARPS * 256 * sizeof(float));
-  L.total = o;
-  return L;
+// region indices (ops/nerf_kernels.py::bwd_regions)
+__host__ __device__ inline int R_X0() { return 0; }
+__host__ __device__ inline int R_H(int i) { return 1 + i; }
+__host__ __device__ inline int R_DT0(int D) { return 1 + D; }
+__host__ __device__ inline int R_T(int D, int i) { return 1 + D + i; }        // i = 1..3
+__host__ __device__ inline int R_GH(int D, int i) { return 5 + D + i; }
+__host__ __device__ inline int R_GDT(int D) { return 5 + 2 * D; }
+__host__ __device__ inline int R_GT(int D, int i) { return 5 + 2 * D + i; }   // i = 1..3
+__host__ __device__ inline int R_GRAW(int D) { return 9 + 2 * D; }
+
+__device__ inline float bf(bf16 x) { return __bfloat162float(x); }
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
+__device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // Offset of trunk layer i's first matrix in the packed weights (i >= 1;
 // i == D gives the end of the trunk).
@@ -95,317 +111,592 @@ __host__ __device__ inline Offsets offsets(const Dims& dm, int stat) {
   return o;
 }
 
-__device__ inline float bf(bf16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// 1. bwd_stash
+// ---------------------------------------------------------------------------
 
-// dW (Nout, K) += g^T . a over the TP rows of the tile.
-// g: shared bf16 (TP, ldg) over the Nout outputs; a: shared bf16 (TP, lda)
-// over the K inputs; dW: this block's float32 slab, row-major.
-__device__ inline void wgrad(const bf16* g, int ldg, const bf16* a, int lda, int TP,
-                             int Nout, int K, float* dW) {
-  const int warp = threadIdx.x / 32;
-  const int nt = K / 16;
-  for (int tile = warp; tile < (Nout / 16) * nt; tile += NWARPS) {
-    const int m0 = (tile / nt) * 16, n0 = (tile % nt) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, dW + (size_t)m0 * K + n0, K, wmma::mem_row_major);
-    for (int k = 0; k < TP; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, g + (size_t)k * ldg + m0, ldg);
-      wmma::load_matrix_sync(fb, a + (size_t)k * lda + n0, lda);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(dW + (size_t)m0 * K + n0, acc, K, wmma::mem_row_major);
-  }
+struct StashLayout {
+  size_t x0, hA, hB, pan0, pan1, scratch, g16, pts, rz, ray, total;
+};
+
+__host__ __device__ inline size_t panel_elems(int W) {
+  const size_t fwd = (size_t)W * (KP + PAD), bwd = (size_t)KP * (W + PAD);
+  return fwd > bwd ? fwd : bwd;
 }
 
-// gout[:, :K] = bf16((act > 0) * (g . W + ex_g[row] * ex_w[col])): the
-// cotangent of a layer's input, masked by that input's stashed activation.
-// g: shared bf16 (TP, ldg) over Nout outputs; W: global bf16 (Nout, K)
-// row-major; act: shared bf16 (TP, lda); ex_g / ex_w: an optional rank-1
-// term (the sigma head's share of the trunk's last cotangent).
-// Ends with __syncthreads().
-__device__ inline void dgrad(const bf16* g, int ldg, int Nout, const bf16* W, int K,
-                             const bf16* act, int lda, int TP, bf16* gout, int ldo,
-                             float* scratch, const float* ex_g, int ex_ld,
-                             const bf16* ex_w) {
+__host__ __device__ inline StashLayout stash_layout(int K0, int W) {
+  StashLayout L;
+  const size_t b = sizeof(bf16);
+  size_t o = 0;
+  L.x0 = o;      o = align128(o + (size_t)BTP * (K0 + PAD) * b);
+  L.hA = o;      o = align128(o + (size_t)BTP * (W + PAD) * b);
+  L.hB = o;      o = align128(o + (size_t)BTP * (W + PAD) * b);
+  L.pan0 = o;    o = align128(o + panel_elems(W) * b);
+  L.pan1 = o;    o = align128(o + panel_elems(W) * b);
+  L.scratch = o; o = align128(o + (size_t)NWARPS * 256 * sizeof(float));
+  L.g16 = o;     o = align128(o + (size_t)BTP * G_RAW * sizeof(float));
+  L.pts = o;     o = align128(o + (size_t)BTP * 3 * sizeof(float));
+  L.rz = o;      o = align128(o + (size_t)BTP * sizeof(float));
+  L.ray = o;     o = align128(o + (size_t)BTP * sizeof(int));
+  L.total = o;
+  return L;
+}
+
+// 8 floats from a 16-byte aligned address
+__device__ inline void load8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// Where an epilogue writes besides shared memory: stash + (p0 + row) * ld
+// + col + n, bf16.
+struct StashOut {
+  bf16* base;
+  int ld;
+};
+
+// A layer's product over a tile, its weights streamed through two panels.
+// BWD == false: out = relu(in1 . W1^T (+ in2 . W2^T) + bias (+ dpt[ray])),
+//   W_s (Nout, K_s) row-major; a panel is W_s[:, k0:k0+64] (Nout rows).
+// BWD == true: out = bf16((act > 0) * (in1 . W1 (+ ex_g[row] ex_w[col]))),
+//   W1 (K1, Nout) row-major (the layer's own matrix, out x in); a panel is
+//   W1[k0:k0+64, :].
+// in*: shared bf16 (BTP, ld*); out: shared bf16 (BTP, ldo), also written to
+// the stash. Ends with __syncthreads().
+template <bool BWD, int NJ>
+__device__ void panel_layer(const bf16* in1, int ld1, int K1, const bf16* W1,
+                            const bf16* in2, int ld2, int K2, const bf16* W2,
+                            int Nout, bf16* pan0, bf16* pan1, const float* bias,
+                            const float* dpt, int ld_dpt, const int* row_ray,
+                            const bf16* act, int ld_act, const float* ex_g, int ex_ld,
+                            const bf16* ex_w, bf16* out, int ldo, StashOut so,
+                            float* scratch) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int nt = Nout / 16;
+  const int np1 = (K1 + KP - 1) / KP;
+  const int np = np1 + (in2 != nullptr ? (K2 + KP - 1) / KP : 0);
+  const int ldp = BWD ? Nout + PAD : KP + PAD;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NJ];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[mi][j], 0.f);
+
+  auto issue = [&](int p, bf16* dst) {
+    const bool second = p >= np1;
+    const bf16* Wm = second ? W2 : W1;
+    const int K = second ? K2 : K1;
+    const int k0 = (second ? p - np1 : p) * KP;
+    const int kp = min(KP, K - k0);
+    if (!BWD) {
+      const int cpr = kp / 8;
+      for (int i = threadIdx.x; i < Nout * cpr; i += blockDim.x) {
+        const int r = i / cpr, c = (i % cpr) * 8;
+        cp_async16(dst + (size_t)r * ldp + c, Wm + (size_t)r * K + k0 + c);
+      }
+    } else {
+      const int cpr = Nout / 8;
+      for (int i = threadIdx.x; i < kp * cpr; i += blockDim.x) {
+        const int r = i / cpr, c = (i % cpr) * 8;
+        cp_async16(dst + (size_t)r * ldp + c, Wm + (size_t)(k0 + r) * Nout + c);
+      }
+    }
+    cp_commit();
+  };
+
+  issue(0, pan0);
+  for (int p = 0; p < np; ++p) {
+    bf16* cur = (p & 1) ? pan1 : pan0;
+    if (p + 1 < np) {
+      issue(p + 1, (p & 1) ? pan0 : pan1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const bool second = p >= np1;
+    const bf16* in = second ? in2 : in1;
+    const int ld = second ? ld2 : ld1;
+    const int K = second ? K2 : K1;
+    const int k0 = (second ? p - np1 : p) * KP;
+    const int kp = min(KP, K - k0);
+    for (int kk = 0; kk < kp; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        wmma::load_matrix_sync(fa[mi], in + (size_t)(wm * 32 + mi * 16) * ld + k0 + kk, ld);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int ni = wn + 4 * j;
+        if (ni < nt) {
+          if (BWD) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+            wmma::load_matrix_sync(fb, cur + (size_t)kk * ldp + ni * 16, ldp);
+            wmma::mma_sync(acc[0][j], fa[0], fb, acc[0][j]);
+            wmma::mma_sync(acc[1][j], fa[1], fb, acc[1][j]);
+          } else {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+            wmma::load_matrix_sync(fb, cur + (size_t)(ni * 16) * ldp + kk, ldp);
+            wmma::mma_sync(acc[0][j], fa[0], fb, acc[0][j]);
+            wmma::mma_sync(acc[1][j], fa[1], fb, acc[1][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the panel is free for the copy two panels on
+  }
+
+  // epilogue: 8 columns a lane, 16-byte reads and writes
   float* scr = scratch + warp * 256;
-  const int nt = K / 16;
-  for (int tile = warp; tile < (TP / 16) * nt; tile += NWARPS) {
-    const int m0 = (tile / nt) * 16, n0 = (tile % nt) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k = 0; k < Nout; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, g + (size_t)m0 * ldg + k, ldg);
-      wmma::load_matrix_sync(fb, W + (size_t)k * K + n0, K);
-      wmma::mma_sync(acc, fa, fb, acc);
+  const int r = lane >> 1, c8 = (lane & 1) * 8;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int ni = wn + 4 * j;
+      if (ni >= nt) continue;
+      wmma::store_matrix_sync(scr, acc[mi][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int row = wm * 32 + mi * 16 + r, col = ni * 16 + c8;
+      float v[8];
+      const float4 s0 = *reinterpret_cast<const float4*>(scr + r * 16 + c8);
+      const float4 s1 = *reinterpret_cast<const float4*>(scr + r * 16 + c8 + 4);
+      v[0] = s0.x; v[1] = s0.y; v[2] = s0.z; v[3] = s0.w;
+      v[4] = s1.x; v[5] = s1.y; v[6] = s1.z; v[7] = s1.w;
+      __align__(16) bf16 o[8];
+      if (!BWD) {
+        const int ray = dpt != nullptr ? row_ray[row] : -1;
+        float bv[8], dv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        load8(bias + col, bv);
+        if (ray >= 0) load8(dpt + (size_t)ray * ld_dpt + col, dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float x = v[e] + bv[e];
+          if (ray >= 0) x += dv[e];
+          o[e] = __float2bfloat16(fmaxf(x, 0.f));
+        }
+      } else {
+        __align__(16) bf16 m[8];
+        *reinterpret_cast<uint4*>(m) =
+            *reinterpret_cast<const uint4*>(act + (size_t)row * ld_act + col);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float x = v[e];
+          if (ex_g != nullptr) x += ex_g[row * ex_ld] * bf(ex_w[col + e]);
+          o[e] = __float2bfloat16(bf(m[e]) > 0.f ? x : 0.f);
+        }
+      }
+      const uint4 ov = *reinterpret_cast<const uint4*>(o);
+      *reinterpret_cast<uint4*>(out + (size_t)row * ldo + col) = ov;
+      *reinterpret_cast<uint4*>(so.base + (size_t)row * so.ld + col) = ov;
+      __syncwarp();
     }
-    wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int row = m0 + e / 16, col = n0 + e % 16;
-      float v = scr[e];
-      if (ex_g != nullptr) v += ex_g[row * ex_ld] * bf(ex_w[col]);
-      gout[row * ldo + col] = __float2bfloat16(bf(act[row * lda + col]) > 0.f ? v : 0.f);
-    }
-    __syncwarp();
   }
   __syncthreads();
 }
 
-// db[:n] += column sums of g (TP, ldg) over the tile's rows.
-__device__ inline void colsum(const bf16* g, int ldg, int TP, int n, float* db) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < TP; ++r) s += bf(g[r * ldg + j]);
-    db[j] += s;
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-raw_bwd_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
-               const float* __restrict__ z, const float* __restrict__ dpt,
-               const float* __restrict__ g, int N, int S,
-               const bf16* __restrict__ wts, const float* __restrict__ bias,
-               const float* __restrict__ freqs, Dims dm, int stat,
-               float* __restrict__ slabs, int slab_stride,
-               float* __restrict__ dpt_part, int kmax) {
+// NJ: n-fragments a warp holds, 2 for W <= 128 (two blocks an SM), 4 for
+// W <= 256 (one block).
+template <int NJ>
+__global__ void __launch_bounds__(NTHREADS, NJ <= 2 ? 2 : 1)
+bwd_stash_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
+                 const float* __restrict__ z, const float* __restrict__ dpt,
+                 const float* __restrict__ g, int N, int S,
+                 const bf16* __restrict__ wts, const float* __restrict__ bias,
+                 const float* __restrict__ freqs, Dims dm, int stat,
+                 bf16* __restrict__ stash, Regions rg) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L = bwd_layout(dm.TP, dm.K0, dm.W, dm.D);
-  const int TP = dm.TP, W = dm.W, half = W / 2, K0 = dm.K0;
+  const StashLayout L = stash_layout(dm.K0, dm.W);
+  const int W = dm.W, half = W / 2, K0 = dm.K0, D = dm.D;
   const int Wd = stat ? half : W, NR = stat ? N_STATIC : N_RAW;
-  const int ldx = K0 + PAD, ldh = W + PAD, ldt = half + PAD;
+  const int ldx = K0 + PAD, ldh = W + PAD;
   bf16* x0 = reinterpret_cast<bf16*>(smem + L.x0);
-  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
-  bf16* dt0 = reinterpret_cast<bf16*>(smem + L.dt0);
-  bf16* ts = reinterpret_cast<bf16*>(smem + L.ts);
-  bf16* G0 = reinterpret_cast<bf16*>(smem + L.g0);
-  bf16* G1 = reinterpret_cast<bf16*>(smem + L.g1);
-  float* g16 = reinterpret_cast<float*>(smem + L.g16);
+  bf16* hA = reinterpret_cast<bf16*>(smem + L.hA);
+  bf16* hB = reinterpret_cast<bf16*>(smem + L.hB);
+  bf16* pan0 = reinterpret_cast<bf16*>(smem + L.pan0);
+  bf16* pan1 = reinterpret_cast<bf16*>(smem + L.pan1);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  float* g16 = reinterpret_cast<float*>(smem + L.g16);
   Tile tl{};
   tl.x0 = x0;
   tl.pts = reinterpret_cast<float*>(smem + L.pts);
   tl.rz = reinterpret_cast<float*>(smem + L.rz);
   tl.ray = reinterpret_cast<int*>(smem + L.ray);
   tl.scratch = scratch;
-  auto H = [&](int i) { return hs + (size_t)i * TP * ldh; };
-  // transient activations: T(0) is the t half of dt0, T(1..3) the chain
-  auto T = [&](int i) { return i == 0 ? dt0 + half : ts + (size_t)(i - 1) * TP * ldt; };
-  auto Tld = [&](int i) { return i == 0 ? ldh : ldt; };
-
-  const Offsets of = offsets(dm, stat);
-  const bf16* w_dt = wts + of.w_dt;
-  const bf16* w_heads = wts + of.w_heads;
-  float* slab = slabs + (size_t)blockIdx.x * slab_stride;
-  float* dW = slab;                 // weight grads, the packed order
-  float* dB = slab + of.nw;         // bias grads, the packed order
-  for (int i = threadIdx.x; i < slab_stride; i += blockDim.x) slab[i] = 0.f;
-  __syncthreads();
 
   const long long P = (long long)N * S;
-  const long long n_tiles = (P + TP - 1) / TP;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long p0 = tile * TP;
-    for (int r = threadIdx.x; r < TP; r += blockDim.x) {
-      const long long p = p0 + r;
-      tl.ray[r] = p < P ? (int)(p / S) : -1;
-      tl.rz[r] = p < P ? z[p] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < TP * NR; idx += blockDim.x) {
-      const int r = idx / NR, c = idx % NR;
-      const long long p = p0 + r;
-      g16[idx] = p < P ? bf(__float2bfloat16(g[(size_t)c * P + p])) : 0.f;
-    }
-    __syncthreads();
+  const long long p0 = (long long)blockIdx.x * BTP;
+  // region r's rows of this tile
+  auto at = [&](int r) { return StashOut{stash + rg.off[r] + p0 * rg.width[r], rg.width[r]}; };
+  auto col = [](StashOut s, int c) { return StashOut{s.base + c, s.ld}; };
 
-    // ---- 1. forward recompute (fine_raw_t's arithmetic), stashing
-    build_pe(dm, tl, ro, rd, freqs);
-    layer(x0, ldx, K0, wts, nullptr, 0, 0, nullptr, TP, W, bias, nullptr, 0,
-          nullptr, H(0), ldh, scratch);
-    for (int i = 1; i < dm.D; ++i) {
-      const bf16* wi = wts + trunk_off(dm, i);
-      if (i == dm.skip)
-        layer(x0, ldx, K0, wi, H(i - 1), ldh, W, wi + (size_t)W * K0, TP, W,
-              bias + i * W, nullptr, 0, nullptr, H(i), ldh, scratch);
-      else
-        layer(H(i - 1), ldh, W, wi, nullptr, 0, 0, nullptr, TP, W, bias + i * W,
-              nullptr, 0, nullptr, H(i), ldh, scratch);
-    }
-    bf16* h = H(dm.D - 1);
-    layer(h, ldh, W, w_dt, nullptr, 0, 0, nullptr, TP, Wd, bias + of.b_dt, dpt, Wd,
-          tl.ray, dt0, ldh, scratch);
-    if (!stat)
-      for (int i = 0; i < 3; ++i)
-        layer(T(i), Tld(i), half, wts + of.w_tr + (size_t)i * half * half, nullptr, 0,
-              0, nullptr, TP, half, bias + of.b_tr + i * half, nullptr, 0, nullptr,
-              T(i + 1), ldt, scratch);
-
-    // ---- 2./3. heads (CUDA cores): weight and bias grads, and the
-    // masked bf16 cotangents of d (G0[:, :half]) and of t3 (G1[:, :half])
-    for (int idx = threadIdx.x; idx < NR * W; idx += blockDim.x) {
-      const int c = idx / W, j = idx % W;
-      const bf16* x;
-      int ld;
-      if (c == 3) {
-        x = h + j;
-        ld = ldh;
-      } else if (c < 3) {
-        if (j >= half) continue;
-        x = dt0 + j;
-        ld = ldh;
-      } else {
-        if (j < half) continue;
-        x = T(3) + (j - half);
-        ld = ldt;
-      }
-      float s = 0.f;
-      for (int r = 0; r < TP; ++r) s += g16[r * NR + c] * bf(x[r * ld]);
-      dW[of.w_heads + idx] += s;
-    }
-    for (int c = threadIdx.x; c < NR; c += blockDim.x) {
-      float s = 0.f;
-      for (int r = 0; r < TP; ++r) s += g16[r * NR + c];
-      dB[of.b_heads + c] += s;
-    }
-    for (int idx = threadIdx.x; idx < TP * half; idx += blockDim.x) {
-      const int r = idx / half, j = idx % half;
-      float v = 0.f;
-      for (int c = 0; c < 3; ++c) v += g16[r * NR + c] * bf(w_heads[(size_t)c * W + j]);
-      G0[r * ldh + j] = __float2bfloat16(bf(dt0[r * ldh + j]) > 0.f ? v : 0.f);
-      if (!stat) {
-        float u = 0.f;
-        for (int c = 4; c < N_RAW; ++c)
-          u += g16[r * NR + c] * bf(w_heads[(size_t)c * W + half + j]);
-        G1[r * ldh + j] = __float2bfloat16(bf(T(3)[r * ldt + j]) > 0.f ? u : 0.f);
-      }
-    }
-    __syncthreads();
-
-    // transient chain, from t3 down to t0 (the t half of G0)
-    if (!stat) {
-      bf16* gc = G1;
-      for (int i = 2; i >= 0; --i) {
-        const bf16* wi = wts + of.w_tr + (size_t)i * half * half;
-        wgrad(gc, ldh, T(i), Tld(i), TP, half, half, dW + of.w_tr + (size_t)i * half * half);
-        colsum(gc, ldh, TP, half, dB + of.b_tr + i * half);
-        bf16* gn = i == 0 ? G0 + half : (gc == G1 ? G1 + half : G1);
-        dgrad(gc, ldh, half, wi, half, T(i), Tld(i), TP, gn, ldh, scratch, nullptr, 0,
-              nullptr);
-        gc = gn;
-      }
-    }
-
-    // the dt layer: weight and bias grads, per-ray d_dpt partials, and the
-    // trunk's last cotangent (plus the sigma head's share) into G1
-    wgrad(G0, ldh, h, ldh, TP, Wd, W, dW + of.w_dt);
-    colsum(G0, ldh, TP, Wd, dB + of.b_dt);
-    const long long r0 = p0 / S;
-    for (int idx = threadIdx.x; idx < kmax * Wd; idx += blockDim.x) {
-      const int k = idx / Wd, j = idx % Wd;
-      float s = 0.f;
-      for (int r = 0; r < TP; ++r)
-        if (tl.ray[r] == r0 + k) s += bf(G0[r * ldh + j]);
-      dpt_part[((size_t)tile * kmax + k) * Wd + j] = s;
-    }
-    dgrad(G0, ldh, Wd, w_dt, W, h, ldh, TP, G1, ldh, scratch, g16 + 3, NR,
-          w_heads + (size_t)3 * W);
-
-    // trunk, from layer D-1 down to layer 0
-    bf16* gc = G1;
-    bf16* ga = G0;
-    for (int i = dm.D - 1; i >= 0; --i) {
-      colsum(gc, ldh, TP, W, dB + i * W);
-      if (i == 0) {
-        wgrad(gc, ldh, x0, ldx, TP, W, K0, dW);
-        break;
-      }
-      const size_t off = trunk_off(dm, i);
-      const bf16* wh = wts + off;
-      if (i == dm.skip) {
-        wgrad(gc, ldh, x0, ldx, TP, W, K0, dW + off);
-        wh += (size_t)W * K0;
-        wgrad(gc, ldh, H(i - 1), ldh, TP, W, W, dW + off + (size_t)W * K0);
-      } else {
-        wgrad(gc, ldh, H(i - 1), ldh, TP, W, W, dW + off);
-      }
-      dgrad(gc, ldh, W, wh, W, H(i - 1), ldh, TP, ga, ldh, scratch, nullptr, 0, nullptr);
-      bf16* tmp = gc;
-      gc = ga;
-      ga = tmp;
-    }
-    __syncthreads();
+  for (int r = threadIdx.x; r < BTP; r += blockDim.x) {
+    const long long p = p0 + r;
+    tl.ray[r] = p < P ? (int)(p / S) : -1;
+    tl.rz[r] = p < P ? z[p] : 0.f;
   }
-}
+  // g rounded to bf16: shared float copy and the stash's g region
+  const StashOut sg = at(R_GRAW(D));
+  for (int idx = threadIdx.x; idx < BTP * G_RAW; idx += blockDim.x) {
+    const int r = idx / G_RAW, c = idx % G_RAW;
+    const long long p = p0 + r;
+    const bf16 v = __float2bfloat16(p < P && c < NR ? g[(size_t)c * P + p] : 0.f);
+    g16[idx] = bf(v);
+    sg.base[(size_t)r * G_RAW + c] = v;
+  }
+  __syncthreads();
 
-// Sums the blocks' slabs in block order: weight grads -> bf16, bias grads
-// -> float32.
-__global__ void slab_reduce(const float* __restrict__ slabs, int n_blocks,
-                            int slab_stride, int nw, int nb, bf16* __restrict__ dw,
-                            float* __restrict__ db) {
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < nw + nb;
-       e += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < n_blocks; ++b) s += slabs[(size_t)b * slab_stride + e];
-    if (e < nw)
-      dw[e] = __float2bfloat16(s);
+  // ---- forward recompute (fine_raw_t's arithmetic), writing A_l
+  build_pe(dm, tl, ro, rd, freqs);
+  {
+    const StashOut sx = at(R_X0());
+    const int cpr = K0 / 8;
+    for (int i = threadIdx.x; i < BTP * cpr; i += blockDim.x) {
+      const int r = i / cpr, c = (i % cpr) * 8;
+      *reinterpret_cast<uint4*>(sx.base + (size_t)r * K0 + c) =
+          *reinterpret_cast<const uint4*>(x0 + (size_t)r * ldx + c);
+    }
+  }
+  panel_layer<false, NJ>(x0, ldx, K0, wts, nullptr, 0, 0, nullptr, W, pan0, pan1, bias,
+                     nullptr, 0, nullptr, nullptr, 0, nullptr, 0, nullptr, hA, ldh,
+                     at(R_H(0)), scratch);
+  bf16* cur = hA;
+  bf16* nxt = hB;
+  for (int i = 1; i < D; ++i) {
+    const bf16* wi = wts + trunk_off(dm, i);
+    if (i == dm.skip)
+      panel_layer<false, NJ>(x0, ldx, K0, wi, cur, ldh, W, wi + (size_t)W * K0, W, pan0,
+                         pan1, bias + i * W, nullptr, 0, nullptr, nullptr, 0, nullptr, 0,
+                         nullptr, nxt, ldh, at(R_H(i)), scratch);
     else
-      db[e - nw] = s;
+      panel_layer<false, NJ>(cur, ldh, W, wi, nullptr, 0, 0, nullptr, W, pan0, pan1,
+                         bias + i * W, nullptr, 0, nullptr, nullptr, 0, nullptr, 0,
+                         nullptr, nxt, ldh, at(R_H(i)), scratch);
+    bf16* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  const Offsets of = offsets(dm, stat);
+  const bf16* w_heads = wts + of.w_heads;
+  bf16* X = cur;   // h_{D-1}; then t1 | t2, t3 over t1; then cotangents
+  bf16* Y = nxt;   // dt0 = [d | t0]; then G_dt in place
+  panel_layer<false, NJ>(X, ldh, W, wts + of.w_dt, nullptr, 0, 0, nullptr, Wd, pan0, pan1,
+                     bias + of.b_dt, dpt, Wd, tl.ray, nullptr, 0, nullptr, 0, nullptr, Y,
+                     ldh, at(R_DT0(D)), scratch);
+  if (!stat) {
+    const bf16* w_tr = wts + of.w_tr;
+    const size_t hh = (size_t)half * half;
+    panel_layer<false, NJ>(Y + half, ldh, half, w_tr, nullptr, 0, 0, nullptr, half, pan0,
+                       pan1, bias + of.b_tr, nullptr, 0, nullptr, nullptr, 0, nullptr, 0,
+                       nullptr, X, ldh, at(R_T(D, 1)), scratch);
+    panel_layer<false, NJ>(X, ldh, half, w_tr + hh, nullptr, 0, 0, nullptr, half, pan0, pan1,
+                       bias + of.b_tr + half, nullptr, 0, nullptr, nullptr, 0, nullptr,
+                       0, nullptr, X + half, ldh, at(R_T(D, 2)), scratch);
+    panel_layer<false, NJ>(X + half, ldh, half, w_tr + 2 * hh, nullptr, 0, 0, nullptr, half,
+                       pan0, pan1, bias + of.b_tr + 2 * half, nullptr, 0, nullptr,
+                       nullptr, 0, nullptr, 0, nullptr, X, ldh, at(R_T(D, 3)), scratch);
+  }
+
+  // ---- heads (CUDA cores: at most 9 rows): the masked bf16 cotangents of
+  // d (in place over d in Y) and of t3 (in place over t3 in X)
+  const StashOut sdt = at(R_GDT(D));
+  const StashOut st3 = stat ? StashOut{nullptr, 0} : at(R_GT(D, 3));
+  for (int idx = threadIdx.x; idx < BTP * half; idx += blockDim.x) {
+    const int r = idx / half, j = idx % half;
+    float v = 0.f;
+    for (int c = 0; c < 3; ++c) v += g16[r * G_RAW + c] * bf(w_heads[(size_t)c * W + j]);
+    const bf16 gd = __float2bfloat16(bf(Y[r * ldh + j]) > 0.f ? v : 0.f);
+    Y[r * ldh + j] = gd;
+    sdt.base[(size_t)r * sdt.ld + j] = gd;
+    if (!stat) {
+      float u = 0.f;
+      for (int c = 4; c < N_RAW; ++c)
+        u += g16[r * G_RAW + c] * bf(w_heads[(size_t)c * W + half + j]);
+      const bf16 gt = __float2bfloat16(bf(X[r * ldh + j]) > 0.f ? u : 0.f);
+      X[r * ldh + j] = gt;
+      st3.base[(size_t)r * st3.ld + j] = gt;
+    }
+  }
+  __syncthreads();
+
+  // ---- transient chain, t3 down to t0 (the t half of G_dt)
+  if (!stat) {
+    const bf16* w_tr = wts + of.w_tr;
+    const size_t hh = (size_t)half * half;
+    const StashOut t1 = at(R_T(D, 1));
+    panel_layer<true, NJ>(X, ldh, half, w_tr + 2 * hh, nullptr, 0, 0, nullptr, half, pan0,
+                      pan1, nullptr, nullptr, 0, nullptr, X + half, ldh, nullptr, 0,
+                      nullptr, X + half, ldh, at(R_GT(D, 2)), scratch);
+    panel_layer<true, NJ>(X + half, ldh, half, w_tr + hh, nullptr, 0, 0, nullptr, half, pan0,
+                      pan1, nullptr, nullptr, 0, nullptr, t1.base, t1.ld, nullptr, 0,
+                      nullptr, X, ldh, at(R_GT(D, 1)), scratch);
+    panel_layer<true, NJ>(X, ldh, half, w_tr, nullptr, 0, 0, nullptr, half, pan0, pan1,
+                      nullptr, nullptr, 0, nullptr, Y + half, ldh, nullptr, 0, nullptr,
+                      Y + half, ldh, col(sdt, half), scratch);
+  }
+
+  // ---- the dt layer's input grad plus the sigma head's share, masked by
+  // h_{D-1}; then the trunk, layer D-1 down to 1 (the skip layer's h half)
+  {
+    const StashOut h = at(R_H(D - 1));
+    panel_layer<true, NJ>(Y, ldh, Wd, wts + of.w_dt, nullptr, 0, 0, nullptr, W, pan0, pan1,
+                      nullptr, nullptr, 0, nullptr, h.base, h.ld, g16 + 3, G_RAW,
+                      w_heads + (size_t)3 * W, X, ldh, at(R_GH(D, D - 1)), scratch);
+  }
+  bf16* gc = X;
+  bf16* ga = Y;
+  for (int i = D - 1; i >= 1; --i) {
+    const bf16* wh = wts + trunk_off(dm, i) + (i == dm.skip ? (size_t)W * K0 : 0);
+    const StashOut h = at(R_H(i - 1));
+    panel_layer<true, NJ>(gc, ldh, W, wh, nullptr, 0, 0, nullptr, W, pan0, pan1, nullptr,
+                      nullptr, 0, nullptr, h.base, h.ld, nullptr, 0, nullptr, ga, ldh,
+                      at(R_GH(D, i - 1)), scratch);
+    bf16* t = gc;
+    gc = ga;
+    ga = t;
   }
 }
 
-// d_dpt[ray] = sum of the partials of the tiles the ray spans, in tile order.
-__global__ void dpt_reduce(const float* __restrict__ part, int N, int S, int TP,
-                           int kmax, int Wd, float* __restrict__ d_dpt) {
-  const long long n = (long long)N * Wd;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const long long ray = idx / Wd;
-    const int j = (int)(idx % Wd);
-    const long long t0 = ray * S / TP, t1 = (ray * S + S - 1) / TP;
-    float s = 0.f;
-    for (long long t = t0; t <= t1; ++t) {
-      const long long k = ray - t * TP / S;
-      s += part[((size_t)t * kmax + k) * Wd + j];
+// ---------------------------------------------------------------------------
+// 2. bwd_wgrad
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64, WG_STAGES = 3;
+constexpr int WG_NF = 4;                        // n-fragments a warp holds
+constexpr int WG_THREADS = 32 * 4 * (WG_BN / (16 * WG_NF));   // 4 warps along M
+constexpr int WG_LD = WG_BM + PAD;   // == WG_BN + PAD
+constexpr size_t WG_SMEM = (size_t)WG_STAGES * 2 * WG_BK * WG_LD * sizeof(bf16);
+// problem table columns (ops/nerf_kernels.py::BWD_PROBLEM_COLS)
+enum { P_GOFF, P_GLD, P_GCOL, P_AOFF, P_ALD, P_ACOL, P_M, P_K, P_R0, P_R1, P_WOFF, P_WLD,
+       P_BOFF, P_NCOLS };
+
+// One (chunk, problem, 128x128 output tile) a block: 4 x (128 / 16 WG_NF)
+// warps, each 32 rows x 16 WG_NF columns of the tile, float32 sums in registers
+// over the chunk's points; G^T is a col-major A operand of the point-major
+// G tile. Fragments outside the problem's M x K are skipped, warp-uniformly.
+__global__ void __launch_bounds__(WG_THREADS, 512 / WG_THREADS)
+bwd_wgrad_kernel(const bf16* __restrict__ stash, const long long* __restrict__ problems,
+                 const int* __restrict__ jobs, int n_jobs, long long Pp, long long chunk,
+                 int nw, float* __restrict__ partials, long long part_stride) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int job = blockIdx.x % n_jobs;
+  const long long ck = blockIdx.x / n_jobs;
+  const long long* pr = problems + (size_t)jobs[job * 3] * P_NCOLS;
+  const int m0 = jobs[job * 3 + 1], n0 = jobs[job * 3 + 2];
+  const int Mt = min(WG_BM, (int)pr[P_M] - m0), Kt = min(WG_BN, (int)pr[P_K] - n0);
+  const int gld = (int)pr[P_GLD], ald = (int)pr[P_ALD];
+  const bf16* Gp = stash + pr[P_GOFF] + pr[P_GCOL] + m0;
+  const bf16* Ap = stash + pr[P_AOFF] + pr[P_ACOL] + n0;
+  const bool with_bias = pr[P_BOFF] >= 0 && n0 == 0;
+  const long long pb = ck * chunk;
+  const long long pe = min(Pp, pb + chunk);
+  const int nk = (int)((pe - pb) / WG_BK);
+
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  auto Gs = [&](int s) { return ring + (size_t)s * 2 * WG_BK * WG_LD; };
+  auto As = [&](int s) { return Gs(s) + (size_t)WG_BK * WG_LD; };
+  const int gc = Mt / 8, ac = Kt / 8;
+  auto issue = [&](int kt) {
+    if (kt < nk) {
+      const int s = kt % WG_STAGES;
+      const long long p = pb + (long long)kt * WG_BK;
+      for (int i = threadIdx.x; i < WG_BK * (gc + ac); i += WG_THREADS) {
+        const int r = i / (gc + ac), c = i % (gc + ac);
+        if (c < gc)
+          cp_async16(Gs(s) + r * WG_LD + c * 8, Gp + (p + r) * gld + c * 8);
+        else
+          cp_async16(As(s) + r * WG_LD + (c - gc) * 8, Ap + (p + r) * ald + (c - gc) * 8);
+      }
     }
-    d_dpt[idx] = s;
+    cp_commit();
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp & 3, wn = warp >> 2;
+  const bool live_m[2] = {wm * 32 < Mt, wm * 32 + 16 < Mt};
+  bool live_n[WG_NF];
+#pragma unroll
+  for (int ni = 0; ni < WG_NF; ++ni) live_n[ni] = (wn * WG_NF + ni) * 16 < Kt;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][WG_NF], accb[2];
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> ones;
+  wmma::fill_fragment(ones, __float2bfloat16(1.f));
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    wmma::fill_fragment(accb[mi], 0.f);
+#pragma unroll
+    for (int ni = 0; ni < WG_NF; ++ni) wmma::fill_fragment(acc[mi][ni], 0.f);
+  }
+  const bool bias_warp = with_bias && wn == 0;
+
+  for (int s = 0; s < WG_STAGES - 1; ++s) issue(s);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<WG_STAGES - 2>();
+    __syncthreads();
+    issue(kt + WG_STAGES - 1);
+    const bf16* g = Gs(kt % WG_STAGES);
+    const bf16* a = As(kt % WG_STAGES);
+#pragma unroll
+    for (int kk = 0; kk < WG_BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[WG_NF];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        if (live_m[mi])
+          wmma::load_matrix_sync(fa[mi], g + kk * WG_LD + wm * 32 + mi * 16, WG_LD);
+#pragma unroll
+      for (int ni = 0; ni < WG_NF; ++ni)
+        if (live_n[ni])
+          wmma::load_matrix_sync(fb[ni], a + kk * WG_LD + (wn * WG_NF + ni) * 16, WG_LD);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (!live_m[mi]) continue;
+#pragma unroll
+        for (int ni = 0; ni < WG_NF; ++ni)
+          if (live_n[ni]) wmma::mma_sync(acc[mi][ni], fa[mi], fb[ni], acc[mi][ni]);
+        if (bias_warp) wmma::mma_sync(accb[mi], fa[mi], ones, accb[mi]);
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // epilogue through a per-warp 16x16 scratch: rows [r0, r1) of the
+  // problem, 8 columns a lane
+  float* scr = reinterpret_cast<float*>(smem) + warp * 256;
+  float* part = partials + ck * part_stride;
+  const int r0 = (int)pr[P_R0], r1 = (int)pr[P_R1];
+  const long long woff = pr[P_WOFF], wld = pr[P_WLD];
+  const int lr = lane >> 1, lc = (lane & 1) * 8;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if (!live_m[mi]) continue;
+    const int row = m0 + wm * 32 + mi * 16 + lr;
+    const bool keep = row >= r0 && row < r1;
+#pragma unroll
+    for (int ni = 0; ni < WG_NF; ++ni) {
+      if (!live_n[ni]) continue;
+      wmma::store_matrix_sync(scr, acc[mi][ni], 16, wmma::mem_row_major);
+      __syncwarp();
+      if (keep) {
+        float* dst = part + woff + row * wld + n0 + (wn * WG_NF + ni) * 16 + lc;
+        reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(scr + lr * 16 + lc)[0];
+        reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(scr + lr * 16 + lc)[1];
+      }
+      __syncwarp();
+    }
+    if (bias_warp) {
+      wmma::store_matrix_sync(scr, accb[mi], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int brow = m0 + wm * 32 + mi * 16 + lane;
+      if (lane < 16 && brow >= r0 && brow < r1) part[nw + pr[P_BOFF] + brow] = scr[lane * 16];
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. bwd_reduce
+// ---------------------------------------------------------------------------
+
+// The d_w entries no problem writes, so no partial holds: the heads' zero
+// blocks, rgb rows 0:3 over the t half and transient rows 4:9 over the d
+// half of w_heads (W columns, from heads).
+__device__ inline bool head_gap(long long e, long long heads, int W) {
+  if (e < heads) return false;
+  const int r = (int)((e - heads) / W), c = (int)((e - heads) % W);
+  return r < 3 ? c >= W / 2 : (r > 3 && c < W / 2);
+}
+
+__global__ void bwd_reduce_kernel(const float* __restrict__ partials, int n_chunks,
+                                  long long part_stride, int nw, int nb, long long heads,
+                                  int W, bf16* __restrict__ dw, float* __restrict__ db,
+                                  const bf16* __restrict__ g_dt, int N, int S, int Wd,
+                                  float* __restrict__ d_dpt) {
+  const long long n = (long long)nw + nb + (long long)N * Wd;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    if (e < nw && head_gap(e, heads, W)) {
+      dw[e] = __float2bfloat16(0.f);
+    } else if (e < nw + nb) {
+      float s = 0.f;
+      for (int c = 0; c < n_chunks; ++c) s += partials[c * part_stride + e];
+      if (e < nw)
+        dw[e] = __float2bfloat16(s);
+      else
+        db[e - nw] = s;
+    } else {
+      const long long q = e - nw - nb;
+      const long long ray = q / Wd;
+      const int j = (int)(q % Wd);
+      const bf16* src = g_dt + ray * S * Wd + j;
+      float s = 0.f;
+      for (int t = 0; t < S; ++t) s += bf(src[(size_t)t * Wd]);
+      d_dpt[q] = s;
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int dfn_raw_bwd(const float* ro, const float* rd, const float* z,
-                           const float* dpt, int N, int S, const void* wts,
-                           const float* bias, const float* freqs, int D, int W,
-                           int skip, int F, int stat, const float* g, int TP,
-                           float* slabs, int n_blocks, int slab_stride,
-                           float* dpt_part, int kmax, void* dw, float* db,
-                           float* d_dpt, void* stream) {
-  if (TP % 16 != 0 || W % 32 != 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
-  Dims dm{D, W, skip, F, pe_cols(F), TP};
-  const Offsets of = offsets(dm, stat);
-  if ((long long)of.nw + of.nb > slab_stride) return (int)cudaErrorInvalidValue;
-  const BwdLayout L = bwd_layout(TP, dm.K0, W, D);
-  cudaError_t e = cudaFuncSetAttribute(raw_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+// Launch 1. regions: host arrays of the stash regions' offsets (elements)
+// and widths, n_regions == 2 D + 10. The wrapper checks W (a multiple of 32,
+// at most 256) and the skip.
+extern "C" int dfn_raw_bwd_stash(const float* ro, const float* rd, const float* z,
+                                 const float* dpt, int N, int S, const void* wts,
+                                 const float* bias, const float* freqs, int D, int W,
+                                 int skip, int F, int stat, const float* g, void* stash,
+                                 const long long* reg_off, const int* reg_width,
+                                 int n_regions, void* stream) {
+  if (n_regions != 2 * D + 10 || n_regions > MAX_REGIONS) return (int)cudaErrorInvalidValue;
+  Dims dm{D, W, skip, F, pe_cols(F), BTP};
+  Regions rg{};
+  for (int i = 0; i < n_regions; ++i) {
+    rg.off[i] = reg_off[i];
+    rg.width[i] = reg_width[i];
+  }
+  const StashLayout L = stash_layout(dm.K0, W);
+  auto kernel = W <= 128 ? bwd_stash_kernel<2> : bwd_stash_kernel<4>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)L.total);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  raw_bwd_kernel<<<n_blocks, NTHREADS, L.total, st>>>(
-      ro, rd, z, dpt, g, N, S, (const bf16*)wts, bias, freqs, dm, stat, slabs,
-      slab_stride, dpt_part, kmax);
-  e = cudaGetLastError();
+  const long long tiles = ((long long)N * S + BTP - 1) / BTP;
+  kernel<<<(unsigned)tiles, NTHREADS, L.total, (cudaStream_t)stream>>>(
+      ro, rd, z, dpt, g, N, S, (const bf16*)wts, bias, freqs, dm, stat, (bf16*)stash, rg);
+  return (int)cudaGetLastError();
+}
+
+// Launch 2. problems: device int64 (n_problems, 13); jobs: device int32
+// (n_jobs, 3) of (problem, m0, n0); Pp and chunk are multiples of 64.
+extern "C" int dfn_raw_bwd_wgrad(const void* stash, const long long* problems,
+                                 const int* jobs, int n_jobs, long long Pp,
+                                 long long chunk, int n_chunks, int nw, float* partials,
+                                 long long part_stride, void* stream) {
+  if (Pp % WG_BK != 0 || chunk % WG_BK != 0 || n_jobs < 1 || n_chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(bwd_wgrad_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)WG_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int n = (int)of.nw + of.nb;
-  slab_reduce<<<(n + 255) / 256, 256, 0, st>>>(slabs, n_blocks, slab_stride,
-                                                (int)of.nw, of.nb, (bf16*)dw, db);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long nd = (long long)N * (stat ? W / 2 : W);
-  const int grid = (int)((nd + 255) / 256 < 65535 ? (nd + 255) / 256 : 65535);
-  dpt_reduce<<<grid, 256, 0, st>>>(dpt_part, N, S, TP, kmax, stat ? W / 2 : W, d_dpt);
+  bwd_wgrad_kernel<<<(unsigned)((long long)n_jobs * n_chunks), WG_THREADS, WG_SMEM,
+                     (cudaStream_t)stream>>>((const bf16*)stash, problems, jobs, n_jobs,
+                                             Pp, chunk, nw, partials, part_stride);
+  return (int)cudaGetLastError();
+}
+
+// Launch 3. heads: offset of w_heads in the packed weights; g_dt: the
+// stash's G_dt region.
+extern "C" int dfn_raw_bwd_reduce(const float* partials, int n_chunks, long long part_stride,
+                                  int nw, int nb, long long heads, int W, void* dw, float* db,
+                                  const void* g_dt, int N, int S, int Wd, float* d_dpt,
+                                  void* stream) {
+  const long long n = (long long)nw + nb + (long long)N * Wd;
+  const int grid = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  bwd_reduce_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      partials, n_chunks, part_stride, nw, nb, heads, W, (bf16*)dw, db, (const bf16*)g_dt,
+      N, S, Wd, d_dpt);
   return (int)cudaGetLastError();
 }

@@ -45,6 +45,8 @@ reach the params tree through autograd.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -346,20 +348,121 @@ def fine_raw_plain(packed: Dict, rays_o, rays_d, z_all, dpt, spec: KernelSpec):
     return raw.t().reshape(N_RAW, N, S).contiguous()
 
 
-def raw_bwd_plain(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec):
-    """Plain version of raw_bwd_t, the backward of fine_raw_t (fine or
-    static pack) for the cotangent g (n_raw, N, S) of its output:
-    returns (d_w (bf16, packed["w"]'s layout), d_b (float32, packed["b"]'s
-    layout), d_dpt (N, Wd) float32). Rays, z and freqs get none.
+BWD_TILE = 64       # points per tile of bwd_stash; the stash's rows pad to it
+BWD_G_RAW = 16      # columns of the stash's g_raw region
+# columns of a row of bwd_problems (csrc/raw_bwd.cu reads them by these names)
+BWD_PROBLEM_COLS = ("g_off", "g_ld", "g_col", "a_off", "a_ld", "a_col", "M", "K", "r0",
+                    "r1", "w_off", "w_ld", "b_off")
 
-    Precision contract of the JAX kernel (_bwd_kernel_t): g is rounded to
-    bf16 before the heads' weight and bias grads and their input grads;
-    each later cotangent is masked by its stashed activation > 0 and
-    rounded to bf16 before it becomes a matmul operand; every product
-    sums in float32; weight grads leave as bf16."""
+
+def bwd_regions(spec: KernelSpec) -> List[Tuple[str, int]]:
+    """(name, width) of each region of raw_bwd_t's stash, in the order the
+    CUDA code indexes them (csrc/raw_bwd.cu, R_*): the input activations A_l
+    x0, h0..h{D-1}, dt0 (= [d | t0]), t1..t3, then the masked output
+    cotangents G_l g_h0..g_h{D-1}, g_dt, g_t1..g_t3, and g_raw (g rounded to
+    bf16, zero-padded to 16 columns). The static pack's t and g_t regions
+    have width 0."""
+    D, W, Wd = spec.D, spec.W, spec.Wd
+    tw = spec.W // 2 if spec.fine else 0
+    return ([("x0", spec.K0)] + [(f"h{i}", W) for i in range(D)] + [("dt0", Wd)]
+            + [(f"t{i}", tw) for i in (1, 2, 3)]
+            + [(f"g_h{i}", W) for i in range(D)] + [("g_dt", Wd)]
+            + [(f"g_t{i}", tw) for i in (1, 2, 3)] + [("g_raw", BWD_G_RAW)])
+
+
+def bwd_points(N: int, S: int) -> int:
+    """Rows of raw_bwd_t's stash: N*S rounded up to a whole tile."""
+    return -(-N * S // BWD_TILE) * BWD_TILE
+
+
+def bwd_stash_offsets(spec: KernelSpec, Pp: int) -> Dict[str, Tuple[int, int]]:
+    """{region: (offset in elements, width)}; each region is (Pp, width)."""
+    out, off = {}, 0
+    for name, width in bwd_regions(spec):
+        out[name] = (off, width)
+        off += Pp * width
+    out["total"] = (off, 0)
+    return out
+
+
+def bwd_stash_views(stash: torch.Tensor, spec: KernelSpec, N: int,
+                    S: int) -> Dict[str, torch.Tensor]:
+    """{region: (N*S, width) view of its live rows} of a stash."""
+    R = bwd_stash_offsets(spec, bwd_points(N, S))
+    return {name: stash[R[name][0]:R[name][0] + N * S * width].view(N * S, width)
+            for name, width in bwd_regions(spec) if width}
+
+
+def _packed_offsets(entries) -> Dict[str, int]:
+    out, off = {}, 0
+    for name, shape in entries:
+        out[name] = off
+        off += int(np.prod(shape))
+    return out
+
+
+def bwd_problems(spec: KernelSpec, Pp: int) -> List[List[int]]:
+    """The weight-grad GEMMs of raw_bwd_t, one row (BWD_PROBLEM_COLS) each:
+    dW[r, c] = sum_p G[p, g_col + r] A[p, a_col + c] for r < M, c < K, kept
+    for r0 <= r < r1 at w_off + r * w_ld + c of the packed weights; and,
+    where b_off >= 0, db[b_off + r] = sum_p G[p, g_col + r]. G and A are
+    stash regions (offset, row length). Shared by the wrapper (the table
+    bwd_wgrad reads) and raw_bwd_from_stash_plain."""
+    R = bwd_stash_offsets(spec, Pp)
+    ws, bs = _layout(spec)
+    wo, bo = _packed_offsets(ws), _packed_offsets(bs)
+    D, W, K0, half, Wd = spec.D, spec.W, spec.K0, spec.W // 2, spec.Wd
+
+    def prob(g, a, a_col, M, K, w_off, w_ld, b_off, r0=0, r1=None):
+        return [*R[g], 0, R[a][0], R[a][1], a_col, M, K, r0, M if r1 is None else r1,
+                w_off, w_ld, b_off]
+
+    bt = bo["b_trunk"]
+    probs = [prob("g_h0", "x0", 0, W, K0, wo["w0"], K0, bt)]
+    for i in range(1, D):
+        if i == spec.skip:
+            probs += [prob(f"g_h{i}", "x0", 0, W, K0, wo[f"wx{i}"], K0, bt + i * W),
+                      prob(f"g_h{i}", f"h{i - 1}", 0, W, W, wo[f"wh{i}"], W, -1)]
+        else:
+            probs.append(prob(f"g_h{i}", f"h{i - 1}", 0, W, W, wo[f"w{i}"], W, bt + i * W))
+    probs.append(prob("g_dt", f"h{D - 1}", 0, Wd, W, wo["w_dt"], W, bo["b_dt"]))
+    if spec.fine:
+        for i in range(3):
+            a, a_col = ("dt0", half) if i == 0 else (f"t{i}", 0)
+            probs.append(prob(f"g_t{i + 1}", a, a_col, half, half, wo[f"w_tr{i}"], half,
+                              bo["b_tr"] + i * half))
+    # heads: rgb rows 0:3 over d, sigma row 3 over h, transient rows 4:9 over t3
+    wh, bh = wo["w_heads"], bo["b_heads"]
+    probs += [prob("g_raw", "dt0", 0, BWD_G_RAW, half, wh, W, bh, 0, 3),
+              prob("g_raw", f"h{D - 1}", 0, BWD_G_RAW, W, wh, W, bh, 3, 4)]
+    if spec.fine:
+        probs.append(prob("g_raw", "t3", 0, BWD_G_RAW, half, wh + half, W, bh, 4, N_RAW))
+    return probs
+
+
+def bwd_jobs(problems: List[List[int]], tile: int = 128) -> List[Tuple[int, int, int]]:
+    """(problem, m0, n0) of each output tile of bwd_wgrad (its WG_BM x WG_BN,
+    128 x 128)."""
+    M, K = BWD_PROBLEM_COLS.index("M"), BWD_PROBLEM_COLS.index("K")
+    return [(i, m0, n0) for i, p in enumerate(problems)
+            for m0 in range(0, p[M], tile) for n0 in range(0, p[K], tile)]
+
+
+def bwd_chunks(Pp: int, n_jobs: int, n_sm: int) -> Tuple[int, int]:
+    """(chunk, n_chunks): the split of the stash's rows among bwd_wgrad's
+    blocks, about four blocks an SM (two run at a time), each chunk a whole
+    number of tiles."""
+    n = max(1, min(-(-4 * n_sm // n_jobs), Pp // 1024))
+    chunk = max(BWD_TILE, -(-Pp // (n * BWD_TILE)) * BWD_TILE)
+    return chunk, -(-Pp // chunk)
+
+
+def _bwd_chain_plain(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec):
+    """raw_bwd_t's recompute and cotangent chain in plain torch:
+    {bwd_regions name: (N*S, width) float32 tensor of bf16 values}."""
     v = unpack(packed, spec)
     N, S = z_all.shape
-    P, W, half, Wd = N * S, spec.W, spec.W // 2, spec.Wd
+    P, half, Wd = N * S, spec.W // 2, spec.Wd
     wf = {k: t.float() for k, t in v.items()}
     # forward recompute, stashing the post-ReLU activations (bf16 values)
     x0 = _pe_plain(_points(rays_o, rays_d, z_all), packed["freqs"], spec.K0)
@@ -371,10 +474,8 @@ def raw_bwd_plain(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec)
         else:
             y = hs[-1] @ wf[f"w{i}"].t()
         hs.append(_bf(torch.relu(y + b[i])))
-    h = hs[-1]
-    pre = (h @ wf["w_dt"].t()).reshape(N, S, Wd) + v["b_dt"] + dpt[:, None, :]
+    pre = (hs[-1] @ wf["w_dt"].t()).reshape(N, S, Wd) + v["b_dt"] + dpt[:, None, :]
     dt0 = _bf(torch.relu(pre)).reshape(P, Wd)
-    d = dt0[:, :half]
     ts = []
     if spec.fine:
         ts = [dt0[:, half:]]
@@ -384,46 +485,118 @@ def raw_bwd_plain(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec)
     def masked(act, gr):
         return _bf(torch.where(act > 0, gr, torch.zeros_like(gr)))
 
-    # heads
     heads = wf["w_heads"]
     gb = _bf(g.reshape(spec.n_raw, P).t())                    # (P, n_raw)
-    grads = {"w_heads": torch.zeros_like(heads)}
-    grads["w_heads"][0:3, :half] = gb[:, 0:3].t() @ d
-    grads["w_heads"][3] = gb[:, 3] @ h
-    g0 = masked(d, gb[:, 0:3] @ heads[0:3, :half])
+    out = {"x0": x0, "dt0": dt0, "g_raw": Fn.pad(gb, (0, BWD_G_RAW - spec.n_raw))}
+    out.update({f"h{i}": h for i, h in enumerate(hs)})
+    g0 = masked(dt0[:, :half], gb[:, 0:3] @ heads[0:3, :half])
     if spec.fine:
-        grads["w_heads"][4:9, half:] = gb[:, 4:9].t() @ ts[3]
+        out.update({f"t{i}": ts[i] for i in (1, 2, 3)})
         gt = gb[:, 4:9] @ heads[4:9, half:]
-        grads["b_tr"] = torch.zeros_like(v["b_tr"])
         for i in (2, 1, 0):
             gp = masked(ts[i + 1], gt)
-            grads[f"w_tr{i}"] = gp.t() @ ts[i]
-            grads["b_tr"][i] = gp.sum(0)
+            out[f"g_t{i + 1}"] = gp
             gt = gp @ wf[f"w_tr{i}"]
         g0 = torch.cat([g0, masked(ts[0], gt)], -1)
-    grads["b_heads"] = gb.sum(0)
-    # the dt layer: weight, bias and the per-ray rows
-    grads["w_dt"] = g0.t() @ h
-    grads["b_dt"] = g0.sum(0)
-    d_dpt = g0.reshape(N, S, Wd).sum(1)
+    out["g_dt"] = g0
     g_h = g0 @ wf["w_dt"] + gb[:, 3:4] * heads[3][None]
-    # trunk
-    grads["b_trunk"] = torch.zeros_like(b)
     for i in range(spec.D - 1, -1, -1):
         gp = masked(hs[i], g_h)
-        grads["b_trunk"][i] = gp.sum(0)
-        if i == 0:
-            grads["w0"] = gp.t() @ x0
-        elif i == spec.skip:
-            grads[f"wx{i}"] = gp.t() @ x0
-            grads[f"wh{i}"] = gp.t() @ hs[i - 1]
-            g_h = gp @ wf[f"wh{i}"]
+        out[f"g_h{i}"] = gp
+        if i > 0:
+            g_h = gp @ wf[f"wh{i}" if i == spec.skip else f"w{i}"]
+    return out
+
+
+def raw_bwd_plain(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec):
+    """Plain version of raw_bwd_t, the backward of fine_raw_t (fine or
+    static pack) for the cotangent g (n_raw, N, S) of its output:
+    returns (d_w (bf16, packed["w"]'s layout), d_b (float32, packed["b"]'s
+    layout), d_dpt (N, Wd) float32). Rays, z and freqs get none.
+
+    Precision contract of the JAX kernel (_bwd_kernel_t): g is rounded to
+    bf16 before the heads' weight and bias grads and their input grads;
+    each later cotangent is masked by its stashed activation > 0 and
+    rounded to bf16 before it becomes a matmul operand; every product
+    sums in float32; weight grads leave as bf16."""
+    t = _bwd_chain_plain(packed, rays_o, rays_d, z_all, dpt, g, spec)
+    v = unpack(packed, spec)
+    N, S = z_all.shape
+    half, n_raw = spec.W // 2, spec.n_raw
+    gb, h = t["g_raw"][:, :n_raw], t[f"h{spec.D - 1}"]
+    grads = {"w_heads": torch.zeros_like(v["w_heads"], dtype=torch.float32)}
+    grads["w_heads"][0:3, :half] = gb[:, 0:3].t() @ t["dt0"][:, :half]
+    grads["w_heads"][3] = gb[:, 3] @ h
+    if spec.fine:
+        grads["w_heads"][4:9, half:] = gb[:, 4:9].t() @ t["t3"]
+        grads["b_tr"] = torch.stack([t[f"g_t{i + 1}"].sum(0) for i in range(3)])
+        for i in range(3):
+            a = t["dt0"][:, half:] if i == 0 else t[f"t{i}"]
+            grads[f"w_tr{i}"] = t[f"g_t{i + 1}"].t() @ a
+    grads["b_heads"] = gb.sum(0)
+    g0 = t["g_dt"]
+    grads["w_dt"] = g0.t() @ h
+    grads["b_dt"] = g0.sum(0)
+    d_dpt = g0.reshape(N, S, spec.Wd).sum(1)
+    grads["b_trunk"] = torch.stack([t[f"g_h{i}"].sum(0) for i in range(spec.D)])
+    grads["w0"] = t["g_h0"].t() @ t["x0"]
+    for i in range(1, spec.D):
+        gp, a = t[f"g_h{i}"], t[f"h{i - 1}"]
+        if i == spec.skip:
+            grads[f"wx{i}"] = gp.t() @ t["x0"]
+            grads[f"wh{i}"] = gp.t() @ a
         else:
-            grads[f"w{i}"] = gp.t() @ hs[i - 1]
-            g_h = gp @ wf[f"w{i}"]
+            grads[f"w{i}"] = gp.t() @ a
     ws, bs = _layout(spec)
     return (_flat(grads, ws, torch.bfloat16), _flat(grads, bs, torch.float32),
             d_dpt)
+
+
+def raw_bwd_stash_plain(packed: Dict, rays_o, rays_d, z_all, dpt, g,
+                        spec: KernelSpec) -> torch.Tensor:
+    """Plain version of bwd_stash, raw_bwd_t's first launch: the flat bf16
+    stash, bwd_stash_offsets' layout, rows N*S..Pp zero."""
+    t = _bwd_chain_plain(packed, rays_o, rays_d, z_all, dpt, g, spec)
+    N, S = z_all.shape
+    R = bwd_stash_offsets(spec, bwd_points(N, S))
+    stash = torch.zeros(R["total"][0], dtype=torch.bfloat16, device=rays_o.device)
+    for name, width in bwd_regions(spec):
+        if width:
+            off = R[name][0]
+            stash[off:off + N * S * width] = t[name].reshape(-1).bfloat16()
+    return stash
+
+
+def bwd_problem_views(stash: torch.Tensor, spec: KernelSpec, N: int, S: int):
+    """[(G (Pp, M), A (Pp, K), problem row)] for each row of bwd_problems:
+    the two operands of its GEMM as views of the stash, over all Pp rows."""
+    Pp = bwd_points(N, S)
+
+    def cols(off, ld, col, n):
+        return stash[off:off + Pp * ld].view(Pp, ld)[:, col:col + n]
+
+    return [(cols(go, gld, gcol, M), cols(ao, ald, acol, K), row)
+            for row in bwd_problems(spec, Pp)
+            for go, gld, gcol, ao, ald, acol, M, K, *_ in [row]]
+
+
+def raw_bwd_from_stash_plain(stash: torch.Tensor, spec: KernelSpec, N: int, S: int):
+    """Plain version of bwd_wgrad + bwd_reduce: every problem of
+    bwd_problems as one float32 torch.matmul over all the stash's rows,
+    assembled into (d_w bf16, d_b float32, d_dpt (N, Wd) float32)."""
+    ws, bs = _layout(spec)
+    nw = sum(int(np.prod(s)) for _, s in ws)
+    nb = sum(int(np.prod(s)) for _, s in bs)
+    dw = torch.zeros(nw, dtype=torch.float32, device=stash.device)
+    db = torch.zeros(nb, dtype=torch.float32, device=stash.device)
+    s = stash.float()
+    for G, A, (*_, K, r0, r1, w_off, w_ld, b_off) in bwd_problem_views(s, spec, N, S):
+        torch.as_strided(dw, (r1 - r0, K), (w_ld, 1), w_off + r0 * w_ld).copy_(
+            (G.t() @ A)[r0:r1])
+        if b_off >= 0:
+            db[b_off + r0:b_off + r1] = G[:, r0:r1].sum(0)
+    d_dpt = bwd_stash_views(s, spec, N, S)["g_dt"].reshape(N, S, spec.Wd).sum(1)
+    return dw.bfloat16(), db, d_dpt
 
 
 def _composite_plain(raw: torch.Tensor, z_all: torch.Tensor) -> torch.Tensor:
@@ -632,10 +805,72 @@ def proposal_z_rows(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
     return out
 
 
-def bwd_tile(W: int) -> int:
-    """Points per tile of raw_bwd_t: every activation of a tile is stashed
-    in shared memory, so wide trunks take half as many."""
-    return 32 if W <= 128 else 16
+@functools.lru_cache(maxsize=16)
+def _bwd_tables(spec: KernelSpec, Pp: int, device: torch.device):
+    """bwd_wgrad's problem and job tables on the device, and its split."""
+    probs = bwd_problems(spec, Pp)
+    jobs = bwd_jobs(probs)
+    chunk, n_chunks = bwd_chunks(Pp, len(jobs),
+                                 torch.cuda.get_device_properties(device).multi_processor_count)
+    return (torch.tensor(probs, dtype=torch.int64, device=device),
+            torch.tensor(jobs, dtype=torch.int32, device=device), len(jobs), chunk,
+            n_chunks)
+
+
+def raw_bwd_launches(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec):
+    """raw_bwd_t's three launches on CUDA tensors, checked and allocated but
+    not yet run: ([("stash" | "wgrad" | "reduce", fn)], (d_w, d_b, d_dpt),
+    stash). Running the fns in order fills the outputs; each raises on a
+    launch error. raw_bwd_t runs them; chip_smoke.py times each."""
+    from dfnet_tpu_torch.ops import build
+
+    if not (spec.fine or spec.static):
+        raise ValueError("raw_bwd_t takes a fine or a static pack")
+    if spec.W > 256:
+        raise ValueError(f"raw_bwd_t takes W <= 256: {spec}")
+    N, S = z_all.shape
+    dev = rays_o.device
+    args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
+    _check("g", g, (spec.n_raw, N, S), torch.float32, dev)
+    if dpt.data_ptr() % 16 or packed["b"].data_ptr() % 16:
+        raise ValueError("raw_bwd_t reads dpt and the biases 16 bytes at a time: "
+                         "they must start 16-byte aligned")
+    d_w = torch.empty_like(packed["w"])
+    d_b = torch.empty_like(packed["b"])
+    d_dpt = torch.empty((N, spec.Wd), device=dev, dtype=torch.float32)
+    Pp = bwd_points(N, S)
+    R = bwd_stash_offsets(spec, Pp)
+    stash = torch.empty(R["total"][0], device=dev, dtype=torch.bfloat16)
+    regions = bwd_regions(spec)
+    reg_off = (ctypes.c_longlong * len(regions))(*[R[n][0] for n, _ in regions])
+    reg_width = (ctypes.c_int * len(regions))(*[w for _, w in regions])
+    problems, jobs, n_jobs, chunk, n_chunks = _bwd_tables(spec, Pp, dev)
+    nw, nb = d_w.numel(), d_b.numel()
+    heads = _packed_offsets(_layout(spec)[0])["w_heads"]
+    stride = -(-(nw + nb) // 64) * 64
+    # bwd_reduce writes the heads' zero blocks without reading a partial
+    partials = torch.empty((n_chunks, stride), device=dev, dtype=torch.float32)
+    stream = _stream(d_w)
+
+    def run_stash():
+        _raise_on(build.load("raw_bwd", "dfn_raw_bwd_stash")(
+            *args, int(spec.static), g.data_ptr(), stash.data_ptr(),
+            ctypes.addressof(reg_off), ctypes.addressof(reg_width), len(regions),
+            stream), "raw_bwd_t (bwd_stash)")
+
+    def run_wgrad():
+        _raise_on(build.load("raw_bwd", "dfn_raw_bwd_wgrad")(
+            stash.data_ptr(), problems.data_ptr(), jobs.data_ptr(), n_jobs, Pp, chunk,
+            n_chunks, nw, partials.data_ptr(), stride, stream), "raw_bwd_t (bwd_wgrad)")
+
+    def run_reduce():
+        _raise_on(build.load("raw_bwd", "dfn_raw_bwd_reduce")(
+            partials.data_ptr(), n_chunks, stride, nw, nb, heads, spec.W, d_w.data_ptr(),
+            d_b.data_ptr(), stash.data_ptr() + 2 * R["g_dt"][0], N, S, spec.Wd,
+            d_dpt.data_ptr(), stream), "raw_bwd_t (bwd_reduce)")
+
+    return ([("stash", run_stash), ("wgrad", run_wgrad), ("reduce", run_reduce)],
+            (d_w, d_b, d_dpt), stash)
 
 
 def raw_bwd_t(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec):
@@ -643,35 +878,20 @@ def raw_bwd_t(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSpec):
     cotangent g of its output: (d_w bf16 in packed["w"]'s layout, d_b
     float32 in packed["b"]'s layout, d_dpt (N, spec.Wd) float32). No
     cotangents for rays, z or freqs (stage-1 contract: z is sampled
-    without gradient and rays carry no parameters)."""
+    without gradient and rays carry no parameters).
+
+    On the card, three launches (csrc/raw_bwd.cu): bwd_stash writes every
+    weight's input activation and masked output cotangent to a bf16 stash
+    in device memory (N*S rows; ~1.1 GB at the shipped fine train shape),
+    bwd_wgrad sums the weight grads over chunks of points as a grouped
+    GEMM, bwd_reduce adds the chunks in order and sums d_dpt per ray."""
     if not _on_cuda(rays_o):
         return raw_bwd_plain(packed, rays_o, rays_d, z_all, dpt, g, spec)
-    from dfnet_tpu_torch.ops import build
-
-    if not (spec.fine or spec.static):
-        raise ValueError("raw_bwd_t takes a fine or a static pack")
-    N, S = z_all.shape
-    dev = rays_o.device
-    args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
-    _check("g", g, (spec.n_raw, N, S), torch.float32, dev)
-    d_w = torch.empty_like(packed["w"])
-    d_b = torch.empty_like(packed["b"])
-    d_dpt = torch.empty((N, spec.Wd), device=dev, dtype=torch.float32)
+    N = z_all.shape[0]
+    launches, out, _ = raw_bwd_launches(packed, rays_o, rays_d, z_all, dpt, g, spec)
     if N == 0:
-        return d_w.zero_(), d_b.zero_(), d_dpt
-    TP = bwd_tile(spec.W)
-    n_tiles = -(-N * S // TP)
-    n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-    # one float32 slab of weight and bias grads per block (summed by a
-    # second pass) and per-tile partial sums of d_dpt (rays a tile touches)
-    slab = -(-(d_w.numel() + d_b.numel()) // 64) * 64
-    slabs = torch.empty((n_blocks, slab), device=dev, dtype=torch.float32)
-    kmax = (TP + S - 2) // S + 1
-    dpt_part = torch.empty((n_tiles, kmax, spec.Wd), device=dev, dtype=torch.float32)
-    rc = build.load("raw_bwd")(*args, int(spec.static), g.data_ptr(), TP,
-                               slabs.data_ptr(), n_blocks, slab,
-                               dpt_part.data_ptr(), kmax, d_w.data_ptr(),
-                               d_b.data_ptr(), d_dpt.data_ptr(), _stream(d_w))
-    _raise_on(rc, "raw_bwd_t")
+        return out[0].zero_(), out[1].zero_(), out[2]
+    for _, fn in launches:
+        fn()
     LAUNCHES["raw_bwd_t"] += 1
-    return d_w, d_b, d_dpt
+    return out

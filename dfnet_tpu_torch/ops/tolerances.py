@@ -16,5 +16,6 @@ FLIP_CAP = 10.0
 # Gradients of raw_bwd_t against raw_bwd_plain: 3e-2 of each packed entry's
 # largest magnitude. Both round the cotangents to bf16, so a ReLU mask or
 # bf16 rounding flip moves a term, and the kernel sums over points in
-# another order (WMMA tiles, per-block slabs).
+# another order (WMMA tiles within a chunk of points, then the chunks'
+# float32 partials in chunk order).
 TOL_GRAD = 3e-2

@@ -143,13 +143,10 @@ def test_static_fine_raw_kernel_matches_plain(cuda, D, W, skip, S):
     assert nk.LAUNCHES["fine_raw_t"] == 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("static", [False, True])
-@pytest.mark.parametrize("D,W,skip,S", [(4, 64, 2, 24), (2, 256, 1, 64)])
-def test_raw_bwd_kernel_matches_plain(cuda, D, W, skip, S, static):
-    N = 37                                      # ragged against every tile
-    packed, spec, ro, rd, z, dpt, g = _sweep_inputs(D, W, skip, static, N, S, cuda,
-                                                    D + W)
+def _bwd_close(N, packed, spec, ro, rd, z, dpt, g):
+    """raw_bwd_t against raw_bwd_plain: each packed entry and d_dpt within
+    3e-2 of its largest magnitude; one launch counted; a second call gives
+    the same bits (no atomics)."""
     args = (packed, ro, rd, z, dpt, g, spec)
     nk.reset_launches()
     got = nk.raw_bwd_t(*args)
@@ -168,6 +165,148 @@ def test_raw_bwd_kernel_matches_plain(cuda, D, W, skip, S, static):
     again = nk.raw_bwd_t(*args)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("D,W,skip,S", [(4, 64, 2, 24), (2, 256, 1, 64)])
+def test_raw_bwd_kernel_matches_plain(cuda, D, W, skip, S, static):
+    N = 37                                      # ragged against every tile
+    packed, spec, ro, rd, z, dpt, g = _sweep_inputs(D, W, skip, static, N, S, cuda,
+                                                    D + W)
+    _bwd_close(N, packed, spec, ro, rd, z, dpt, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static,S", [(False, 128), (True, 64)])
+def test_raw_bwd_kernel_matches_plain_shipped_depth(cuda, static, S):
+    # the shipped trunk (D=8, W=128, skip 4) at its train S: 600 / 300
+    # stash tiles, several weight-grad chunks, a ragged last tile
+    N = 300
+    packed, spec, ro, rd, z, dpt, g = _sweep_inputs(8, 128, 4, static, N, S, cuda, 5)
+    *_, chunk, n_chunks = nk._bwd_tables(spec, nk.bwd_points(N, S), cuda)
+    assert n_chunks > 1 and chunk % nk.BWD_TILE == 0
+    _bwd_close(N, packed, spec, ro, rd, z, dpt, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,W,skip,S,static", [(8, 128, 4, 128, False), (8, 128, 4, 64, True),
+                                               (2, 256, 1, 64, False)])
+def test_raw_bwd_wgrad_and_reduce_match_plain_on_the_kernel_stash(cuda, D, W, skip, S,
+                                                                  static):
+    """bwd_wgrad and bwd_reduce alone: d_w, d_b and d_dpt from the kernel's
+    own stash against raw_bwd_from_stash_plain on that stash, so both sides
+    have the same bf16 operands and differ only in the order of their
+    float32 sums. Each entry within 1e-4 of its sum of |products| (the
+    plain version run on |stash|); d_w also within one bf16 step (2^-7 of
+    its magnitude), since both round a float32 sum to bf16. Control: the
+    plain sums with the last, ragged chunk dropped (704 of 38,400 or 19,200
+    points) must fail that bar in d_w and in d_b."""
+    N = 300
+    packed, spec, ro, rd, z, dpt, g = _sweep_inputs(D, W, skip, static, N, S, cuda, 7)
+    Pp = nk.bwd_points(N, S)
+    *_, chunk, n_chunks = nk._bwd_tables(spec, Pp, cuda)
+    assert n_chunks > 1 and Pp - (n_chunks - 1) * chunk < chunk
+    # the partials are torch.empty: let them reuse a NaN-filled block, so a
+    # d_w or d_b entry that bwd_reduce reads but no bwd_wgrad block wrote shows
+    poison = torch.full((n_chunks, packed["w"].numel() + packed["b"].numel() + 64),
+                        float("nan"), device=cuda)
+    del poison
+    launches, got, stash = nk.raw_bwd_launches(packed, ro, rd, z, dpt, g, spec)
+    for _, fn in launches:
+        fn()
+    torch.cuda.synchronize()
+    want = nk.raw_bwd_from_stash_plain(stash, spec, N, S)
+    mag = nk.raw_bwd_from_stash_plain(stash.abs(), spec, N, S)
+
+    def excess(a, b):
+        """Per output, the largest |a - b| over its bar (NaN if any is NaN)."""
+        out = []
+        for i, (x, y, m) in enumerate(zip(a, b, mag)):
+            x, y, m = x.float(), y.float(), m.float()
+            bar = 1e-4 * m + (2 ** -7 * torch.maximum(x.abs(), y.abs()) if i == 0 else 0)
+            out.append(((x - y).abs() / bar.clamp_min(1e-30)).max().item())
+        return out
+
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    err = excess(got, want)
+    assert all(e <= 1 for e in err), dict(zip(("d_w", "d_b", "d_dpt"), err))
+    dropped = stash.clone()
+    R = nk.bwd_stash_offsets(spec, Pp)
+    for name, width in nk.bwd_regions(spec):
+        if width:
+            dropped[R[name][0] + (n_chunks - 1) * chunk * width:R[name][0] + Pp * width] = 0
+    ctrl = excess(got, nk.raw_bwd_from_stash_plain(dropped, spec, N, S))
+    assert ctrl[0] > 1 and ctrl[1] > 1, ctrl
+
+
+def _stash_steps(k, packed, spec, dpt, S):
+    """Each stash region recomputed one layer at a time from the kernel's
+    own stash (k: {region: float32 rows}): a layer's activation from its
+    stashed input, a cotangent from the stashed cotangent above it and its
+    stashed mask. No flip from a layer above reaches the comparison."""
+    v = {n: t.float() for n, t in nk.unpack(packed, spec).items()}
+    bfr = lambda x: x.bfloat16().float()
+    fwd = lambda x, w, b: bfr(torch.relu(x @ w.t() + b))
+    bwd = lambda gr, w, act: bfr(torch.where(act > 0, gr @ w, torch.zeros_like(act)))
+    D, half, b = spec.D, spec.W // 2, v["b_trunk"]
+    out = {"h0": fwd(k["x0"], v["w0"], b[0])}
+    for i in range(1, D):
+        if i == spec.skip:
+            y = k["x0"] @ v[f"wx{i}"].t() + k[f"h{i - 1}"] @ v[f"wh{i}"].t()
+            out[f"h{i}"] = bfr(torch.relu(y + b[i]))
+        else:
+            out[f"h{i}"] = fwd(k[f"h{i - 1}"], v[f"w{i}"], b[i])
+    rows = torch.arange(k["x0"].shape[0], device=dpt.device) // S
+    h = k[f"h{D - 1}"]
+    out["dt0"] = bfr(torch.relu(h @ v["w_dt"].t() + v["b_dt"] + dpt[rows]))
+    heads, gb = v["w_heads"], k["g_raw"][:, :spec.n_raw]
+    g_dt = bwd(gb[:, 0:3], heads[0:3, :half], k["dt0"][:, :half])
+    if spec.fine:
+        t0 = k["dt0"][:, half:]
+        out["t1"] = fwd(t0, v["w_tr0"], v["b_tr"][0])
+        out["t2"] = fwd(k["t1"], v["w_tr1"], v["b_tr"][1])
+        out["t3"] = fwd(k["t2"], v["w_tr2"], v["b_tr"][2])
+        out["g_t3"] = bwd(gb[:, 4:9], heads[4:9, half:], k["t3"])
+        out["g_t2"] = bwd(k["g_t3"], v["w_tr2"], k["t2"])
+        out["g_t1"] = bwd(k["g_t2"], v["w_tr1"], k["t1"])
+        g_dt = torch.cat([g_dt, bwd(k["g_t1"], v["w_tr0"], t0)], -1)
+    out["g_dt"] = g_dt
+    out[f"g_h{D - 1}"] = bfr(torch.where(h > 0, k["g_dt"] @ v["w_dt"] + gb[:, 3:4] * heads[3],
+                                         torch.zeros_like(h)))
+    for i in range(D - 1, 0, -1):
+        w = v[f"wh{i}"] if i == spec.skip else v[f"w{i}"]
+        out[f"g_h{i - 1}"] = bwd(k[f"g_h{i}"], w, k[f"h{i - 1}"])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("D,W,skip,S", [(8, 128, 4, 24), (2, 256, 1, 64)])
+def test_raw_bwd_stash_matches_plain(cuda, D, W, skip, S, static):
+    """bwd_stash alone, so that a fault shows in its phase and layer: x0 and
+    g_raw against raw_bwd_stash_plain (2e-2, fine_raw_t's bar; g_raw
+    exactly), every other region against its layer recomputed in plain
+    torch from the kernel's own stashed inputs (_stash_steps): rtol 2e-2
+    (one bf16 step is 2^-8) and atol 1e-3 of the region's largest
+    magnitude (float32 sums in another order, under cancellation). Both
+    sides use the same stashed masks, so ReLU flips cannot reach it."""
+    N = 37
+    packed, spec, ro, rd, z, dpt, g = _sweep_inputs(D, W, skip, static, N, S, cuda, 9)
+    launches, _, stash = nk.raw_bwd_launches(packed, ro, rd, z, dpt, g, spec)
+    dict(launches)["stash"]()
+    torch.cuda.synchronize()
+    k = {n: t.float() for n, t in nk.bwd_stash_views(stash, spec, N, S).items()}
+    plain = nk.bwd_stash_views(nk.raw_bwd_stash_plain(packed, ro, rd, z, dpt, g, spec),
+                               spec, N, S)
+    assert torch.equal(k["g_raw"], plain["g_raw"].float())
+    torch.testing.assert_close(k["x0"], plain["x0"].float(), atol=2e-2, rtol=2e-2)
+    want = _stash_steps(k, packed, spec, dpt, S)
+    assert sorted(want) == sorted(set(k) - {"x0", "g_raw"})
+    for name, w in want.items():
+        assert torch.isfinite(k[name]).all(), name
+        scale = max(w.abs().max().item(), 1e-30)
+        torch.testing.assert_close(k[name], w, rtol=2e-2, atol=1e-3 * scale, msg=name)
 
 
 @pytest.mark.gpu
