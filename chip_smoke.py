@@ -23,7 +23,11 @@ Phases (any failure exits non-zero):
                launches (stash, wgrad, reduce), the stash's bytes and their
                write-once read-once floor, and the summed time of one
                torch.matmul per weight-grad problem over the same stash
-               views (a yardstick the port never calls);
+               views (a yardstick the port never calls); for fine_raw_t
+               the summed time of one torch.matmul per bf16 product of the
+               sweep at the case's shapes (a yardstick the port never
+               calls), and, in its log line only, ptxas' registers and
+               spills and the blocks an SM of the kernel the width runs;
   3. e2e     — save assets/nerfh_synthetic_301.npz as a checkpoint and run
                the port's stage-1 CLI with --render_test at the shipped
                full-width config; the coarse_sigma_t and fine_raw_t launch
@@ -67,6 +71,7 @@ numbers, and last {"ok": true, "device": {...}}.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -345,6 +350,56 @@ def bwd_parts(a, k):
     return out
 
 
+def fine_raw_yardstick(a) -> float:
+    """Summed ms of one torch.matmul per bf16 product of fine_raw_t on this
+    case: every trunk, dt, transient and head matrix (the case's own
+    weights, bf16) against a bf16 activation of the case's point count
+    (random: the time does not depend on the values). The port never calls
+    it."""
+    import torch
+
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.utils.timing import cuda_ms
+
+    packed, spec = a[0], a[-1]
+    P, W, half = a[3].numel(), spec.W, spec.W // 2
+    v = {n: w.bfloat16() for n, w in nk.unpack(packed, spec).items() if n.startswith("w")}
+    gen = torch.Generator(device=a[1].device).manual_seed(0)
+    act = {K: torch.randn((P, K), device=a[1].device, generator=gen).bfloat16()
+           for K in {spec.K0, W, half}}
+    mats = [(spec.K0, v["w0"])]
+    for i in range(1, spec.D):
+        mats += ([(spec.K0, v[f"wx{i}"]), (W, v[f"wh{i}"])] if i == spec.skip
+                 else [(W, v[f"w{i}"])])
+    heads = v["w_heads"]
+    mats += [(W, v["w_dt"]), (W, heads[3:4]), (half, heads[0:3, :half])]
+    if spec.fine:
+        mats += [(half, v[f"w_tr{i}"]) for i in range(3)] + [(half, heads[4:9, half:])]
+    pairs = [(act[K], w.t()) for K, w in mats]
+    ms = cuda_ms(lambda: [torch.matmul(x, w) for x, w in pairs], reps=5)
+    del act, pairs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def fine_raw_build(spec) -> str:
+    """For the log only, not measured: ptxas' register and spill lines of
+    the fine_raw_t kernel this width runs (fine_raw_kernel<NJ>: NJ = 2 at
+    W <= 128, 4 above) from the library's build log, and the blocks an SM
+    and shared bytes a block from the CUDA occupancy calculator."""
+    from dfnet_tpu_torch.ops import build
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+
+    nj, lines, cur = (4 if spec.W > 128 else 2), [], None
+    for line in build.ptxas_report("fine_raw").splitlines():
+        if "Compiling entry function" in line:
+            cur = re.search(r"fine_raw_kernelILi(\d+)E", line)
+        elif cur and int(cur[1]) == nj and ("registers" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    blocks, smem = nk.fine_raw_occupancy(spec.W, spec.F)
+    return f"NJ={nj} ptxas {lines} blocks_per_sm={blocks} smem_bytes={smem}"
+
+
 def measure(name, a, k, asset, sched):
     """One kernel call on the card against its plain version: agreement,
     CUDA-event times, the bound. Raises SystemExit on disagreement."""
@@ -384,9 +439,14 @@ def measure(name, a, k, asset, sched):
         with torch.no_grad():
             case["parts"] = bwd_parts(a, k)
         torch.cuda.empty_cache()
+    if name == "fine_raw_t":
+        with torch.no_grad():
+            case["yardstick_matmul_ms"] = fine_raw_yardstick(a)
     log(f"[kernels] {name:16s} {asset:30s} {sched:10s} {shape}: "
         f"{json.dumps(info)} ms={ms:.3f} plain_ms={plain_ms:.3f} "
         f"bound_ms={bound_ms:.4f} ({bound_by})"
+        + (f" yardstick_matmul_ms={case['yardstick_matmul_ms']:.3f} "
+           f"build (not measured): {fine_raw_build(spec)}" if name == "fine_raw_t" else "")
         + (f" parts={json.dumps(case['parts'])} stash floor (written and read once "
            f"at the HBM rate) {2 * case['parts']['stash_bytes'] / HBM_BYTES_S * 1e3:.4f} ms"
            if "parts" in case else ""))

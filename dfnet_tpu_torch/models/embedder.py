@@ -3,8 +3,10 @@
 Feature order per input: [identity, sin(f0·x), cos(f0·x), sin(f1·x),
 cos(f1·x), ...] with log-spaced frequencies 2^0..2^max, each sin/cos
 block over all input channels. The windowed (coarse-to-fine) variant
-takes an epoch; the render slice never windows (fast_path_supported
-routes windowed embedders to the plain renderer).
+(--reduce_embedding 2) takes an epoch, which the plain renderer
+(render/volume.py) and the stage-1 loss hand it; the kernel paths never
+window (fast_path_supported and fused_train_supported refuse a windowed
+embedder, so such a model takes the plain renderer).
 """
 
 from __future__ import annotations

@@ -684,6 +684,13 @@ def _check_common(packed: Dict, spec: KernelSpec, rays_o, rays_d, S: int):
     _check("freqs", packed["freqs"], (spec.F,), torch.float32, dev)
 
 
+def _check_aligned16(name: str, dpt: torch.Tensor, bias: torch.Tensor):
+    """The panel kernels read dpt and the biases 16 bytes at a time."""
+    if dpt.data_ptr() % 16 or bias.data_ptr() % 16:
+        raise ValueError(f"{name} reads dpt and the biases 16 bytes at a time: "
+                         "they must start 16-byte aligned")
+
+
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -743,15 +750,29 @@ def fine_raw_t(packed: Dict, rays_o, rays_d, z_all, dpt,
 
     if not (spec.fine or spec.static):
         raise ValueError("fine_raw_t takes a fine or a static pack")
+    if spec.W > 256:
+        raise ValueError(f"fine_raw_t takes W <= 256: {spec}")
     N, S = z_all.shape
     out = torch.empty((spec.n_raw, N, S), device=rays_o.device, dtype=torch.float32)
     args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
+    _check_aligned16("fine_raw_t", dpt, packed["b"])
     if N == 0:
         return out
     rc = build.load("fine_raw")(*args, int(spec.static), out.data_ptr(), _stream(out))
     _raise_on(rc, "fine_raw_t")
     LAUNCHES["fine_raw_t"] += 1
     return out
+
+
+def fine_raw_occupancy(W: int, F: int) -> Tuple[int, int]:
+    """(blocks an SM, shared memory bytes a block) of the fine_raw_t
+    kernel that width W runs, from the CUDA occupancy calculator."""
+    from dfnet_tpu_torch.ops import build
+
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(build.load("fine_raw", "dfn_fine_raw_occupancy")(
+        W, F, ctypes.addressof(blocks), ctypes.addressof(smem)), "fine_raw_occupancy")
+    return blocks.value, smem.value
 
 
 def fine_composite_t(packed: Dict, rays_o, rays_d, z_all, dpt,
@@ -832,9 +853,7 @@ def raw_bwd_launches(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSp
     dev = rays_o.device
     args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
     _check("g", g, (spec.n_raw, N, S), torch.float32, dev)
-    if dpt.data_ptr() % 16 or packed["b"].data_ptr() % 16:
-        raise ValueError("raw_bwd_t reads dpt and the biases 16 bytes at a time: "
-                         "they must start 16-byte aligned")
+    _check_aligned16("raw_bwd_t", dpt, packed["b"])
     d_w = torch.empty_like(packed["w"])
     d_b = torch.empty_like(packed["b"])
     d_dpt = torch.empty((N, spec.Wd), device=dev, dtype=torch.float32)

@@ -139,13 +139,17 @@ def composite_nerfw(raw, z_vals, output_transient: bool, beta_min: float = 0.1,
 def render_rays(params: Dict, model: NeRFHModel, rays_o: torch.Tensor,
                 rays_d: torch.Tensor, hist: torch.Tensor,
                 settings: RenderSettings,
-                gen: Optional[torch.Generator] = None) -> Dict:
+                gen: Optional[torch.Generator] = None,
+                epoch: Optional[float] = None) -> Dict:
     """Render a batch of rays through coarse + fine NeRF-H. At test time
     the coarse pass is sigma-only and the importance samples are
     deterministic; at train time the coarse pass is the full static
     NeRF-W, with stratified jitter (perturb > 0), sigma noise
     (raw_noise_std > 0) and random importance samples drawn from `gen`,
-    in that order. Fine z samples carry no gradient, as in the reference."""
+    in that order. Fine z samples carry no gradient, as in the reference.
+    `epoch` reaches every xyz and direction embedding: it sets the
+    frequency window of a windowed embedder (--reduce_embedding 2) and
+    is ignored by the others."""
     n = rays_o.shape[0]
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     near = torch.full((n, 1), settings.near, device=rays_o.device)
@@ -156,13 +160,13 @@ def render_rays(params: Dict, model: NeRFHModel, rays_o: torch.Tensor,
     cfgc = model.cfg_coarse
     out: Dict = {}
     if settings.test_time:
-        raw_c = nerfw_apply_rays(params["coarse"], cfgc, model.embed_xyz(pts),
+        raw_c = nerfw_apply_rays(params["coarse"], cfgc, model.embed_xyz(pts, epoch),
                                  sigma_only=True)
         comp_c = composite_nerfw(raw_c, z_vals, output_transient=False,
                                  sigma_only=True)
     else:
-        raw_c = nerfw_apply_rays(params["coarse"], cfgc, model.embed_xyz(pts),
-                                 model.embed_dir(viewdirs), output_transient=False)
+        raw_c = nerfw_apply_rays(params["coarse"], cfgc, model.embed_xyz(pts, epoch),
+                                 model.embed_dir(viewdirs, epoch), output_transient=False)
         noise = None
         if settings.raw_noise_std > 0.0 and gen is not None:
             noise = settings.raw_noise_std * gaussian(raw_c.shape[:-1], gen,
@@ -197,10 +201,10 @@ def render_rays(params: Dict, model: NeRFHModel, rays_o: torch.Tensor,
             z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
     pts_f = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
     cfgf = model.cfg_fine
-    dir_emb = model.embed_dir(viewdirs)
+    dir_emb = model.embed_dir(viewdirs, epoch)
     a_emb = lookup_hist_embedding(params["embedding_a"], hist)
     t_emb = lookup_hist_embedding(params["embedding_t"], hist)
-    raw_f = nerfw_apply_rays(params["fine"], cfgf, model.embed_xyz(pts_f),
+    raw_f = nerfw_apply_rays(params["fine"], cfgf, model.embed_xyz(pts_f, epoch),
                              dir_emb, a_emb, t_emb, output_transient=True)
     comp_f = composite_nerfw(raw_f, z_all, output_transient=True,
                              beta_min=cfgf.beta_min,
@@ -238,14 +242,15 @@ def gather_image(outs, n: int, H: int, W: int) -> Dict:
 
 def render_image_grad(params: Dict, model: NeRFHModel, c2w: torch.Tensor,
                       hist: torch.Tensor, H: int, W: int, focal: float,
-                      settings: RenderSettings, chunk: int = 1024 * 8) -> Dict:
+                      settings: RenderSettings, chunk: int = 1024 * 8,
+                      epoch: Optional[float] = None) -> Dict:
     """Full-image render: flatten rays, pad to a chunk multiple and render
     fixed-size chunks in turn (the reference's batchify_rays). Autograd
     stays on: the result is differentiable in c2w and the params (stage
-    3's pose gradients)."""
+    3's pose gradients). `epoch` as in render_rays."""
     n, ro, rd = chunked_rays(H, W, focal, c2w, chunk)
     hist_b = hist[None].expand((chunk,) + hist.shape)
-    outs = [render_rays(params, model, o, d, hist_b, settings)
+    outs = [render_rays(params, model, o, d, hist_b, settings, epoch=epoch)
             for o, d in zip(ro, rd)]
     return gather_image(outs, n, H, W)
 
@@ -253,6 +258,8 @@ def render_image_grad(params: Dict, model: NeRFHModel, c2w: torch.Tensor,
 @torch.no_grad()
 def render_image(params: Dict, model: NeRFHModel, c2w: torch.Tensor,
                  hist: torch.Tensor, H: int, W: int, focal: float,
-                 settings: RenderSettings, chunk: int = 1024 * 8) -> Dict:
+                 settings: RenderSettings, chunk: int = 1024 * 8,
+                 epoch: Optional[float] = None) -> Dict:
     """render_image_grad without autograd (evaluation renders)."""
-    return render_image_grad(params, model, c2w, hist, H, W, focal, settings, chunk)
+    return render_image_grad(params, model, c2w, hist, H, W, focal, settings, chunk,
+                             epoch)

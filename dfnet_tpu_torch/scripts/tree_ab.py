@@ -1,0 +1,188 @@
+"""Another tree's fine_raw_t and raw_bwd_t kernels, and its stage-1 step,
+timed beside this tree's on one card in one run.
+
+    python -m dfnet_tpu_torch.scripts.tree_ab kernels --parent TREE [--reps 7]
+    python -m dfnet_tpu_torch.scripts.tree_ab step --parent TREE
+
+TREE is the root of another checkout of the repo (for example `git archive`
+of the parent commit unpacked into a gitignored directory such as proof/).
+
+kernels: builds TREE's fine_raw.cu and raw_bwd.cu with ops/build.py's nvcc
+flags into build/tree_ab/ (the C entry points must be this tree's), and
+this tree's through ops/build.py. At each of SHAPES (random D=8 skip-4
+nets from a seed, PE F=10, sorted uniform z) it calls this tree's
+wrappers, fine_raw_t and raw_bwd_t, with each tree's library in turn
+(parent, this, this, parent; each reading a CUDA-event median of --reps
+calls) and prints one JSON line a shape and kernel: each tree's median of
+its two readings, the readings, whether the two trees' outputs are
+bit-equal, and each tree's largest error against the plain version.
+
+step: runs chip_smoke.py's phase_train (20 epochs of the shipped config
+through the CLI, then step_breakdown) from each tree's root in its own
+process, in turns parent, this, this, parent, and prints one JSON line of
+each run's steps/s, step breakdown and val PSNR.
+
+Both print the card's name and power limit first. Need a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from dfnet_tpu_torch.models.embedder import get_embedder
+from dfnet_tpu_torch.models.nerfw import NeRFWConfig, init_nerfw_params
+from dfnet_tpu_torch.ops import build
+from dfnet_tpu_torch.ops import nerf_kernels as nk
+from dfnet_tpu_torch.utils.timing import cuda_ms
+
+ROOT = Path(__file__).resolve().parents[2]
+OUT = build.BUILD_ROOT.parent / "tree_ab"
+SOURCES = ("fine_raw", "raw_bwd")
+# (name, W, static, rays, samples): render chunks and one train step's sweeps
+SHAPES = [("render", 128, False, 16384, 128), ("render", 256, False, 16384, 128),
+          ("train-fine", 128, False, 1536, 128), ("train-static", 128, True, 1536, 64),
+          ("train-fine", 256, False, 1536, 128), ("train-static", 256, True, 1536, 64)]
+NEAR, FAR = 2.0, 6.0
+RESULT = "tree_ab result: "
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def build_parent(tree: Path) -> dict:
+    """{source: ctypes library} of TREE's kernels, built in parallel."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for n in SOURCES:
+        lib = OUT / f"lib{n}.so"
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+               str(tree / "dfnet_tpu_torch" / "ops" / "csrc" / f"{n}.cu")]
+        jobs[n] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for n, (lib, proc) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tree}'s {n}.cu:\n{text}")
+        libs[n] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def inputs(W: int, static: bool, N: int, S: int, device, seed: int = 0):
+    cfg = NeRFWConfig(D=8, W=W, skips=(4,), encode_appearance=True, encode_transient=True)
+    params = init_nerfw_params(torch.Generator().manual_seed(seed), cfg, device)
+    emb = get_embedder(10)
+    packed = (nk.pack_static_t if static else nk.pack_fine_t)(params, cfg, emb)
+    packed = {k: v.detach().contiguous() for k, v in packed.items()}
+    spec = nk.spec_of(cfg, emb, fine=not static, static=static)
+    rng = np.random.default_rng(seed + 1)
+    ro = rng.normal(size=(N, 3)).astype(np.float32) * 0.3
+    rd = rng.normal(size=(N, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    z = np.sort(rng.uniform(NEAR, FAR, (N, S)), -1).astype(np.float32)
+    dpt = rng.normal(size=(N, spec.Wd)).astype(np.float32)
+    g = rng.uniform(size=(spec.n_raw, N, S)).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=device)
+    return (packed, t(ro), t(rd), t(z), t(dpt), spec), t(g)
+
+
+def max_err(got, want) -> float:
+    """Largest |got - want| over the outputs, each over its own largest
+    |want| (for raw_bwd_t's three gradients)."""
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    return max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+               for a, b in zip(got, want))
+
+
+def run_kernels(parent: Path, reps: int) -> int:
+    device = torch.device("cuda")
+    theirs = build_parent(parent)
+    build.load("fine_raw")
+    build.load("raw_bwd", "dfn_raw_bwd_stash")
+    ours = {n: build._loaded[n] for n in SOURCES}
+
+    def use(libs):
+        # the wrappers look their library up by source name on every call
+        with build._lock:
+            build._loaded.update(libs)
+
+    trees = {"parent": theirs, "this": ours}
+    for shape, W, static, N, S in SHAPES:
+        sweep, g = inputs(W, static, N, S, device)
+        calls = {"fine_raw_t": (lambda: nk.fine_raw_t(*sweep), nk.fine_raw_plain(*sweep))}
+        if shape.startswith("train"):
+            calls["raw_bwd_t"] = (lambda: nk.raw_bwd_t(*sweep[:5], g, sweep[5]),
+                                  nk.raw_bwd_plain(*sweep[:5], g, sweep[5]))
+        for name, (fn, want) in calls.items():
+            outs, ms = {}, {t: [] for t in trees}
+            with torch.no_grad():
+                for t in ("parent", "this", "this", "parent"):
+                    use(trees[t])
+                    outs.setdefault(t, fn())
+                    ms[t].append(cuda_ms(fn, reps=reps))
+            a, b = outs["parent"], outs["this"]
+            same = (torch.equal(a, b) if torch.is_tensor(a)
+                    else all(torch.equal(x, y) for x, y in zip(a, b)))
+            print(json.dumps(dict(
+                kernel=name, shape=shape, W=W, static=static, N=N, S=S,
+                ms={t: float(np.median(v)) for t, v in ms.items()}, readings=ms,
+                bits_equal=same, max_rel_err={t: max_err(o, want) for t, o in outs.items()})),
+                flush=True)
+            del outs
+        use(ours)
+        del sweep, g, calls
+        torch.cuda.empty_cache()
+    return 0
+
+
+_STEP = f"""
+import json, torch, chip_smoke as c
+r = c.phase_train(torch.device("cuda"))
+print({RESULT!r} + json.dumps({{k: r[k] for k in ("steps_per_s", "val_psnr", "breakdown")}}),
+      flush=True)
+"""
+
+
+def run_step(parent: Path) -> int:
+    runs = []
+    for name, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                       ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", _STEP], cwd=root, capture_output=True,
+                              text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(RESULT)]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+            raise RuntimeError(f"phase_train of {root} failed (exit {proc.returncode})")
+        runs.append(dict(tree=name, **json.loads(lines[-1][len(RESULT):])))
+        print(json.dumps(runs[-1]), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("what", choices=("kernels", "step"))
+    ap.add_argument("--parent", type=Path, required=True, help="another tree's root")
+    ap.add_argument("--reps", type=int, default=7)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tree_ab: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"[card] {card()}", flush=True)
+    parent = args.parent.resolve()
+    return run_kernels(parent, args.reps) if args.what == "kernels" else run_step(parent)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

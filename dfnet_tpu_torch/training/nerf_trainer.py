@@ -84,13 +84,20 @@ def _tree_map(fn: Callable, tree: Dict) -> Dict:
 
 def stage1_loss(params: Dict, model: NeRFHModel, cfg: Config,
                 settings: RenderSettings, rays_o, rays_d, target, hist,
-                gen: Optional[torch.Generator], fused: bool):
+                gen: Optional[torch.Generator], fused: bool,
+                epoch: Optional[float] = None):
     """(loss, fine-rgb MSE) of one ray batch: the NeRF-W loss of the
     kernel (`fused`) or plain render, plus the proposal sampler's bound
     loss against the fine weights (which carry no gradient, so only the
-    proposal learns from it)."""
-    render = render_rays_train_fused if fused else render_rays
-    out = render(params, model, rays_o, rays_d, hist, settings, gen)
+    proposal learns from it). `epoch` sets the frequency window of the
+    plain render's embedders under --reduce_embedding 2 and is dropped
+    otherwise, as in the reference; the kernel render never windows
+    (fused_train_supported refuses a windowed embedder)."""
+    if fused:
+        out = render_rays_train_fused(params, model, rays_o, rays_d, hist, settings, gen)
+    else:
+        ep = epoch if cfg.reduce_embedding == 2 else None
+        out = render_rays(params, model, rays_o, rays_d, hist, settings, gen, epoch=ep)
     loss = sum(nerfw_loss(out, target).values())
     if model.cfg_proposal is not None and "proposal" in params and "weights_fine" in out:
         z_vals = out["z_vals"].detach()
@@ -167,10 +174,13 @@ class NeRFTrainer:
             betas=(ADAM_HYPER["b1"], ADAM_HYPER["b2"]), eps=ADAM_HYPER["eps"])
 
     # ------------------------------------------------------------- step
-    def train_step(self, idx: int, lr: float):
-        """One update on N_rand random pixels of train image `idx`; returns
-        (loss, psnr) as device tensors."""
+    def train_step(self, idx: int, lr: float, epoch: Optional[float] = None):
+        """One update on N_rand random pixels of train image `idx` at the
+        given epoch (default: global_step, which is the epoch the CLI
+        trains); returns (loss, psnr) as device tensors."""
         cfg, sc = self.cfg, self.scene
+        if epoch is None:
+            epoch = self.global_step
         rays_o, rays_d = get_rays(sc.H, sc.W, sc.focal, self._poses[idx])
         sel = torch.randperm(sc.H * sc.W, generator=self.gen,
                              device=self.device)[:cfg.N_rand]
@@ -181,7 +191,7 @@ class NeRFTrainer:
         hist_b = hist[None].expand((rays_o.shape[0],) + hist.shape)
         loss, mse = stage1_loss(self.params, self.model, cfg, self.settings,
                                 rays_o, rays_d, target, hist_b, self.gen,
-                                self.uses_fused_train)
+                                self.uses_fused_train, epoch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.adam_update(lr)
@@ -199,12 +209,12 @@ class NeRFTrainer:
         self.optimizer.step()
 
     def train_epoch(self, epoch: int) -> Tuple[float, float]:
-        """One pass over the shuffled train images; returns the last step's
-        (loss, psnr), as the reference does."""
+        """One pass over the shuffled train images at this epoch; returns
+        the last step's (loss, psnr), as the reference does."""
         lr = exp_decayed_lr(self.cfg, self.global_step)
         loss = psnr = torch.zeros(())
         for idx in epoch_permutation(len(self.scene.train), self.order_rng):
-            loss, psnr = self.train_step(int(idx), lr)
+            loss, psnr = self.train_step(int(idx), lr, epoch)
         self.global_step += 1
         return float(loss), float(psnr)
 
@@ -222,22 +232,25 @@ class NeRFTrainer:
                                  and fast_mod.fast_path_supported(
                                      model, self.settings_test))
         if self.uses_fast_render:
-            def render_one(params, pose, hist):
+            def render_one(params, pose, hist, epoch):
                 return fast_mod.render_image_fast(
                     params, model, pose, hist, eh, ew, ef, self.settings_test,
                     chunk=chunk, use_proposal=cfg.proposal_render,
                     **fast_mod.cull_schedule_kwargs(cfg))
         else:
-            def render_one(params, pose, hist):
+            def render_one(params, pose, hist, epoch):
+                ep = epoch if cfg.reduce_embedding == 2 else None
                 return render_image(params, model, pose, hist, eh, ew, ef,
-                                    self.settings_test, chunk=chunk)
+                                    self.settings_test, chunk=chunk, epoch=ep)
         self._render = render_one
         self._render_factor = rf
 
     def render_split(self, split, savedir: Optional[str] = None,
                      max_images: Optional[int] = None, stride: int = 1) -> float:
-        """Render a split at test settings; returns the mean PSNR. With
-        savedir, writes <j>.png, <j>_GT.png and <j>_disp.png per view."""
+        """Render a split at test settings at epoch global_step (the
+        reference's eval epoch: the epochs trained, or the checkpoint's
+        step under --render_test); returns the mean PSNR. With savedir,
+        writes <j>.png, <j>_GT.png and <j>_disp.png per view."""
         from dfnet_tpu_torch.data.color import downscale_area
 
         idxs = list(range(0, len(split), stride))
@@ -248,7 +261,7 @@ class NeRFTrainer:
             pose = torch.as_tensor(split.poses[i], dtype=torch.float32,
                                    device=self.device)
             hist = torch.as_tensor(split.hists[i], device=self.device)
-            out = self._render(self.params, pose, hist)
+            out = self._render(self.params, pose, hist, self.global_step)
             rgb = out["rgb"].cpu().numpy()
             disp = out["disp"].cpu().numpy()
             gt = split.images[i]
