@@ -26,8 +26,12 @@ Phases (any failure exits non-zero):
                views (a yardstick the port never calls); for fine_raw_t
                the summed time of one torch.matmul per bf16 product of the
                sweep at the case's shapes (a yardstick the port never
-               calls), and, in its log line only, ptxas' registers and
-               spills and the blocks an SM of the kernel the width runs;
+               calls); for fine_composite_t fine_raw_t's time on the same
+               inputs (the same sweep without the composite); and, in the
+               log lines of fine_raw_t, fine_composite_t and
+               coarse_sigma_t only, ptxas' registers and spills and the
+               blocks an SM of the kernel the width runs. coarse_sigma_t
+               also runs at the trainer's eval render of one val view;
   3. e2e     — save assets/nerfh_synthetic_301.npz as a checkpoint and run
                the port's stage-1 CLI with --render_test at the shipped
                full-width config; the coarse_sigma_t and fine_raw_t launch
@@ -382,22 +386,29 @@ def fine_raw_yardstick(a) -> float:
     return ms
 
 
-def fine_raw_build(spec) -> str:
+def kernel_build(name: str, spec, S: int) -> str:
     """For the log only, not measured: ptxas' register and spill lines of
-    the fine_raw_t kernel this width runs (fine_raw_kernel<NJ>: NJ = 2 at
-    W <= 128, 4 above) from the library's build log, and the blocks an SM
-    and shared bytes a block from the CUDA occupancy calculator."""
+    the kernel this width runs (<source>_kernel<NJ>: NJ output fragments a
+    warp, 4 at W > 128, 2 at W > 64, and 2 at W <= 64 too but for
+    coarse_sigma_t's 1) from the library's build log, and the blocks an SM
+    and shared bytes a block from the CUDA occupancy calculator (and the
+    rays a block, for fine_composite_t)."""
     from dfnet_tpu_torch.ops import build
     from dfnet_tpu_torch.ops import nerf_kernels as nk
 
-    nj, lines, cur = (4 if spec.W > 128 else 2), [], None
-    for line in build.ptxas_report("fine_raw").splitlines():
+    source = name[:-2]
+    nj = 4 if spec.W > 128 else (2 if spec.W > 64 or source != "coarse_sigma" else 1)
+    lines, cur = [], None
+    for line in build.ptxas_report(source).splitlines():
         if "Compiling entry function" in line:
-            cur = re.search(r"fine_raw_kernelILi(\d+)E", line)
+            cur = re.search(source + r"_kernelILi(\d+)E", line)
         elif cur and int(cur[1]) == nj and ("registers" in line or "spill" in line):
             lines.append(line.split(":", 1)[-1].strip())
-    blocks, smem = nk.fine_raw_occupancy(spec.W, spec.F)
-    return f"NJ={nj} ptxas {lines} blocks_per_sm={blocks} smem_bytes={smem}"
+    occ = {"fine_raw_t": lambda: nk.fine_raw_occupancy(spec.W, spec.F),
+           "fine_composite_t": lambda: nk.fine_composite_occupancy(spec.W, spec.F, S),
+           "coarse_sigma_t": lambda: nk.coarse_sigma_occupancy(spec.W, spec.F)}[name]()
+    rays = f" rays_per_block={occ[2]}" if name == "fine_composite_t" else ""
+    return f"NJ={nj} ptxas {lines} blocks_per_sm={occ[0]} smem_bytes={occ[1]}{rays}"
 
 
 def measure(name, a, k, asset, sched):
@@ -442,11 +453,19 @@ def measure(name, a, k, asset, sched):
     if name == "fine_raw_t":
         with torch.no_grad():
             case["yardstick_matmul_ms"] = fine_raw_yardstick(a)
+    if name == "fine_composite_t":
+        # the same sweep without the composite, at the same inputs
+        with torch.no_grad():
+            case["fine_raw_ms"] = cuda_ms(lambda: nk.fine_raw_t(*a, **k), reps=7)
     log(f"[kernels] {name:16s} {asset:30s} {sched:10s} {shape}: "
         f"{json.dumps(info)} ms={ms:.3f} plain_ms={plain_ms:.3f} "
         f"bound_ms={bound_ms:.4f} ({bound_by})"
-        + (f" yardstick_matmul_ms={case['yardstick_matmul_ms']:.3f} "
-           f"build (not measured): {fine_raw_build(spec)}" if name == "fine_raw_t" else "")
+        + (f" yardstick_matmul_ms={case['yardstick_matmul_ms']:.3f}"
+           if name == "fine_raw_t" else "")
+        + (f" fine_raw_ms={case['fine_raw_ms']:.3f} "
+           f"(ratio {ms / case['fine_raw_ms']:.3f})" if name == "fine_composite_t" else "")
+        + (f" build (not measured): {kernel_build(name, spec, S)}"
+           if name in ("fine_raw_t", "fine_composite_t", "coarse_sigma_t") else "")
         + (f" parts={json.dumps(case['parts'])} stash floor (written and read once "
            f"at the HBM rate) {2 * case['parts']['stash_bytes'] / HBM_BYTES_S * 1e3:.4f} ms"
            if "parts" in case else ""))
@@ -501,6 +520,11 @@ def phase_kernels(device):
         tr.load_params_tree(load_pytree(str(ROOT / "assets" / asset))[0])
         for (name, sweep), (a, k) in capture_train_step(tr).items():
             cases.append(measure(name, a, k, asset, f"train-{sweep}"))
+        # the trainer's eval render of one val view: its placement sweep
+        calls = spy_on(("coarse_sigma_t",),
+                       lambda: tr.render_split(tr.scene.val, max_images=1))
+        a, k = calls["coarse_sigma_t"][-1]
+        cases.append(measure("coarse_sigma_t", a, k, asset, "train-eval"))
         del tr
         torch.cuda.empty_cache()
     return cases

@@ -31,13 +31,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signature of each entry point, by its name: `dfn_<source>` unless a
-# source has several (mlp_stack.cu, raw_bwd.cu, fine_raw.cu)
+# source has several (mlp_stack.cu, raw_bwd.cu, and an occupancy entry)
 SIGNATURES = {
     "dfn_coarse_sigma": [_P, _P, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                          _P],
+    "dfn_coarse_sigma_occupancy": [_I, _I, _P, _P],
     "dfn_fine_raw": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "dfn_fine_raw_occupancy": [_I, _I, _P, _P],
-    "dfn_fine_composite": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "dfn_fine_composite": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dfn_fine_composite_occupancy": [_I, _I, _I, _I, _P, _P],
     "dfn_raw_bwd_stash": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                           _P, _P, _P, _I, _P],
     "dfn_raw_bwd_wgrad": [_P, _P, _P, _I, _L, _L, _I, _I, _P, _L, _P],

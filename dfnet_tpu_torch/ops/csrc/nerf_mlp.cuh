@@ -1,4 +1,9 @@
-// Shared device code of the NeRF-H MLP sweep kernels (sm_90a).
+// Shared device code of the NeRF-H MLP sweep kernels (sm_90a): the
+// constants, the packed-weight layout and the tile descriptor of every
+// sweep kernel, and the first, generic layer code (smem_layout, carve,
+// build_pe, layer, run_trunk, dot_bf16), which only proposal_z.cu still
+// runs: fine_raw, fine_composite, coarse_sigma and raw_bwd's bwd_stash run
+// panel.cuh's layers through sweep.cuh.
 //
 // Layout: point-major tiles. A block owns TP points (rows); point p of a
 // sweep belongs to ray p / S. Activations live in shared memory as bf16
@@ -41,7 +46,6 @@ constexpr int PAD = 8;        // bf16 row padding: spreads banks, keeps 32 B ali
 constexpr int N_RAW = 9;      // rgb 0:3, sigma 3, t-rgb 4:7, t-sigma 7, t-beta 8
 constexpr int N_STATIC = 4;   // static pack: rgb 0:3, sigma 3
 constexpr int N_COMP = 8;     // rgb 0:3, acc 3, static depth 4, static rgb 5:8
-constexpr int FLAT_TP = 64;   // points per block of the flat sweeps
 
 __host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 __host__ __device__ inline int pe_cols(int F) { return round16(6 * F + 3); }
@@ -206,68 +210,6 @@ __device__ inline float dot_bf16(const bf16* x, const bf16* w, int n) {
   float s = 0.f;
   for (int j = 0; j < n; ++j) s += __bfloat162float(x[j]) * __bfloat162float(w[j]);
   return s;
-}
-
-// Full fine sweep of a tile: trunk, sigma head, folded xyz_final .
-// [dir | trans_0] layer plus the per-ray row dpt, the transient chain at
-// width W/2, heads. Leaves pre-activation outputs in t.raw (TP, N_RAW).
-__device__ inline void fine_tile(const Dims& dm, const Tile& t, const bf16* w,
-                                 const float* b, const float* dpt) {
-  const int W = dm.W, half = W / 2, ldh = W + PAD;
-  bf16* h = run_trunk(dm, t, w, b);
-  bf16* o = (h == t.hA) ? t.hB : t.hA;
-  const bf16* w_dt = w;
-  const bf16* w_tr = w_dt + (size_t)W * W;
-  const bf16* w_heads = w_tr + (size_t)3 * half * half;
-  const float* b_dt = b;
-  const float* b_tr = b_dt + W;
-  const float* b_heads = b_tr + 3 * half;
-
-  for (int r = threadIdx.x; r < dm.TP; r += blockDim.x)
-    t.raw[r * N_RAW + 3] = dot_bf16(h + r * ldh, w_heads + 3 * W, W) + b_heads[3];
-  __syncthreads();
-  // o = [d | t]; the transient chain then ping-pongs the t half between
-  // h and o, so d stays in o and the final t lands in h.
-  layer(h, ldh, W, w_dt, nullptr, 0, 0, nullptr, dm.TP, W, b_dt, dpt, W,
-        t.ray, o, ldh, t.scratch);
-  layer(o + half, ldh, half, w_tr, nullptr, 0, 0, nullptr, dm.TP, half, b_tr,
-        nullptr, 0, nullptr, h + half, ldh, t.scratch);
-  layer(h + half, ldh, half, w_tr + (size_t)half * half, nullptr, 0, 0, nullptr,
-        dm.TP, half, b_tr + half, nullptr, 0, nullptr, o + half, ldh, t.scratch);
-  layer(o + half, ldh, half, w_tr + (size_t)2 * half * half, nullptr, 0, 0, nullptr,
-        dm.TP, half, b_tr + 2 * half, nullptr, 0, nullptr, h + half, ldh, t.scratch);
-  for (int idx = threadIdx.x; idx < dm.TP * N_RAW; idx += blockDim.x) {
-    const int r = idx / N_RAW, c = idx % N_RAW;
-    if (c == 3) continue;
-    const bf16* x = c < 3 ? o + r * ldh : h + r * ldh + half;
-    const bf16* wc = w_heads + (size_t)c * W + (c < 3 ? 0 : half);
-    t.raw[idx] = dot_bf16(x, wc, half) + b_heads[c];
-  }
-  __syncthreads();
-}
-
-// Static sweep of a tile (the train-time coarse pass): trunk, sigma head
-// over h, the folded xyz_final . dir layer at W/2 outputs plus the per-ray
-// row dpt (N, W/2), rgb head over d; no transient chain. Leaves rows 0:4
-// of t.raw (TP, N_RAW).
-__device__ inline void static_tile(const Dims& dm, const Tile& t, const bf16* w,
-                                   const float* b, const float* dpt) {
-  const int W = dm.W, half = W / 2, ldh = W + PAD;
-  bf16* h = run_trunk(dm, t, w, b);
-  bf16* o = (h == t.hA) ? t.hB : t.hA;
-  const bf16* w_dt = w;
-  const bf16* w_heads = w_dt + (size_t)half * W;
-  const float* b_dt = b;
-  const float* b_heads = b_dt + half;
-  layer(h, ldh, W, w_dt, nullptr, 0, 0, nullptr, dm.TP, half, b_dt, dpt, half,
-        t.ray, o, ldh, t.scratch);
-  for (int idx = threadIdx.x; idx < dm.TP * N_STATIC; idx += blockDim.x) {
-    const int r = idx / N_STATIC, c = idx % N_STATIC;
-    t.raw[r * N_RAW + c] =
-        c == 3 ? dot_bf16(h + r * ldh, w_heads + 3 * W, W) + b_heads[3]
-               : dot_bf16(o + r * ldh, w_heads + (size_t)c * W, half) + b_heads[c];
-  }
-  __syncthreads();
 }
 
 }  // namespace dfn

@@ -1,9 +1,9 @@
 // Weight panels (sm_90a): one dense layer's product over a tile of points,
 // the layer's weights streamed through shared memory, and the tile's PE.
-// Shared by fine_raw.cu (the forward sweep) and raw_bwd.cu (bwd_stash: the
-// forward recompute and the cotangent chain), so the two kernels compute
-// the same x0 and trunk activations, hence the same ReLU masks, by
-// construction.
+// Shared by sweep.cuh (the forward sweep of fine_raw.cu, fine_composite.cu
+// and coarse_sigma.cu) and raw_bwd.cu (bwd_stash: the forward recompute and
+// the cotangent chain), so the forward and the backward compute the same x0
+// and trunk activations, hence the same ReLU masks, by construction.
 //
 // The whole fine net (~0.32 MB bf16 at W=128, D=8) does not fit in a
 // block's shared memory, so each layer's weights pass through two panels

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from fractions import Fraction
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -684,11 +685,27 @@ def _check_common(packed: Dict, spec: KernelSpec, rays_o, rays_d, S: int):
     _check("freqs", packed["freqs"], (spec.F,), torch.float32, dev)
 
 
-def _check_aligned16(name: str, dpt: torch.Tensor, bias: torch.Tensor):
+def _check_aligned16(name: str, *tensors: torch.Tensor):
     """The panel kernels read dpt and the biases 16 bytes at a time."""
-    if dpt.data_ptr() % 16 or bias.data_ptr() % 16:
+    if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name} reads dpt and the biases 16 bytes at a time: "
                          "they must start 16-byte aligned")
+
+
+def _check_width(name: str, spec: KernelSpec):
+    if spec.W > 256:
+        raise ValueError(f"{name} takes W <= 256: {spec}")
+
+
+def _occupancy(source: str, *args: int) -> Tuple[int, int]:
+    """(blocks an SM, shared memory bytes a block) from the occupancy entry
+    point dfn_<source>_occupancy(*args, &blocks, &smem)."""
+    from dfnet_tpu_torch.ops import build
+
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(build.load(source, f"dfn_{source}_occupancy")(
+        *args, ctypes.addressof(blocks), ctypes.addressof(smem)), f"{source}_occupancy")
+    return blocks.value, smem.value
 
 
 def _stream(t: torch.Tensor):
@@ -709,9 +726,11 @@ def coarse_sigma_t(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
                                   lindisp)
     from dfnet_tpu_torch.ops import build
 
-    if spec.fine:
+    if spec.fine or spec.static:
         raise ValueError("coarse_sigma_t takes a sigma-only pack")
+    _check_width("coarse_sigma_t", spec)
     _check_common(packed, spec, rays_o, rays_d, S)
+    _check_aligned16("coarse_sigma_t", packed["b"])
     N = rays_o.shape[0]
     out = torch.empty((N, S), device=rays_o.device, dtype=torch.float32)
     if N == 0:
@@ -725,6 +744,12 @@ def coarse_sigma_t(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
     _raise_on(rc, "coarse_sigma_t")
     LAUNCHES["coarse_sigma_t"] += 1
     return out
+
+
+def coarse_sigma_occupancy(W: int, F: int) -> Tuple[int, int]:
+    """(blocks an SM, shared memory bytes a block) of the coarse_sigma_t
+    kernel that width W runs, from the CUDA occupancy calculator."""
+    return _occupancy("coarse_sigma", W, F)
 
 
 def _fine_args(packed, spec: KernelSpec, rays_o, rays_d, z_all, dpt):
@@ -750,8 +775,7 @@ def fine_raw_t(packed: Dict, rays_o, rays_d, z_all, dpt,
 
     if not (spec.fine or spec.static):
         raise ValueError("fine_raw_t takes a fine or a static pack")
-    if spec.W > 256:
-        raise ValueError(f"fine_raw_t takes W <= 256: {spec}")
+    _check_width("fine_raw_t", spec)
     N, S = z_all.shape
     out = torch.empty((spec.n_raw, N, S), device=rays_o.device, dtype=torch.float32)
     args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
@@ -767,12 +791,56 @@ def fine_raw_t(packed: Dict, rays_o, rays_d, z_all, dpt,
 def fine_raw_occupancy(W: int, F: int) -> Tuple[int, int]:
     """(blocks an SM, shared memory bytes a block) of the fine_raw_t
     kernel that width W runs, from the CUDA occupancy calculator."""
-    from dfnet_tpu_torch.ops import build
+    return _occupancy("fine_raw", W, F)
 
-    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    _raise_on(build.load("fine_raw", "dfn_fine_raw_occupancy")(
-        W, F, ctypes.addressof(blocks), ctypes.addressof(smem)), "fine_raw_occupancy")
-    return blocks.value, smem.value
+
+# The panel kernels' shared memory (csrc/sweep.cuh::fwd_layout), mirrored so
+# that fine_composite_t's geometry can be checked without a card.
+SWEEP_TILE = 64              # points a tile (sweep.cuh TP)
+COMP_MAX_POINTS = 256        # fine_composite_t's R*S when a block holds more than a ray
+
+
+def _align128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def sweep_smem_bytes(W: int, F: int) -> int:
+    """Shared bytes a block of csrc/sweep.cuh::fwd_layout (bf16 tiles padded
+    by 8 columns, 8 warps, head-output rows of 20 floats)."""
+    K0, b, f = -(-(6 * F + 3) // 16) * 16, 2, 4
+    panel = max(W * (64 + 8), 64 * (W + 8))
+    parts = [SWEEP_TILE * (K0 + 8) * b, SWEEP_TILE * (W + 8) * b, SWEEP_TILE * (W + 8) * b,
+             panel * b, panel * b, 8 * 256 * f, 16 * (2 * W + 8) * b,
+             SWEEP_TILE * 20 * f, SWEEP_TILE * 3 * f, SWEEP_TILE * f, SWEEP_TILE * 4]
+    return sum(_align128(p) for p in parts)
+
+
+def fine_composite_geometry(S: int) -> Tuple[int, int]:
+    """(R, sub-tiles) of fine_composite_t at S samples a ray: a block owns R
+    whole rays and runs their R*S points through ceil(R*S/64) sub-tiles of
+    64 rows. R keeps R*S <= COMP_MAX_POINTS (R = 1 where S is larger), so
+    that the composite buffer beside the panels leaves two blocks an SM at
+    W <= 128; among those R, the fewest tile rows a ray, then the least R."""
+    def rows(R):
+        return -(-R * S // SWEEP_TILE) * SWEEP_TILE
+
+    R = min(range(1, max(1, COMP_MAX_POINTS // S) + 1),
+            key=lambda r: (Fraction(rows(r), r), r))
+    return R, rows(R) // SWEEP_TILE
+
+
+def fine_composite_smem_bytes(W: int, F: int, S: int) -> int:
+    """Shared bytes a block of fine_composite_t: the sweep's, then the z and
+    the 8 composite inputs (float32) of the block's R*S points."""
+    R, _ = fine_composite_geometry(S)
+    return sweep_smem_bytes(W, F) + _align128((1 + N_COMP) * R * S * 4)
+
+
+def fine_composite_occupancy(W: int, F: int, S: int) -> Tuple[int, int, int]:
+    """(blocks an SM, shared memory bytes a block, R rays a block) of the
+    fine_composite_t kernel at width W and S samples a ray."""
+    R, _ = fine_composite_geometry(S)
+    return (*_occupancy("fine_composite", W, F, S, R), R)
 
 
 def fine_composite_t(packed: Dict, rays_o, rays_d, z_all, dpt,
@@ -785,12 +853,15 @@ def fine_composite_t(packed: Dict, rays_o, rays_d, z_all, dpt,
 
     if not spec.fine:
         raise ValueError("fine_composite_t takes a fine pack")
-    N = z_all.shape[0]
+    _check_width("fine_composite_t", spec)
+    N, S = z_all.shape
     out = torch.empty((N_COMP, N), device=rays_o.device, dtype=torch.float32)
     args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
+    _check_aligned16("fine_composite_t", dpt, packed["b"])
     if N == 0:
         return out
-    rc = build.load("fine_composite")(*args, out.data_ptr(), _stream(out))
+    R, _ = fine_composite_geometry(S)
+    rc = build.load("fine_composite")(*args, R, out.data_ptr(), _stream(out))
     _raise_on(rc, "fine_composite_t")
     LAUNCHES["fine_composite_t"] += 1
     return out
@@ -847,8 +918,7 @@ def raw_bwd_launches(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSp
 
     if not (spec.fine or spec.static):
         raise ValueError("raw_bwd_t takes a fine or a static pack")
-    if spec.W > 256:
-        raise ValueError(f"raw_bwd_t takes W <= 256: {spec}")
+    _check_width("raw_bwd_t", spec)
     N, S = z_all.shape
     dev = rays_o.device
     args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)

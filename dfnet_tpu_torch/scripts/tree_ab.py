@@ -1,5 +1,5 @@
-"""Another tree's fine_raw_t and raw_bwd_t kernels, and its stage-1 step,
-timed beside this tree's on one card in one run.
+"""Another tree's sweep kernels, and its stage-1 step, timed beside this
+tree's on one card in one run.
 
     python -m dfnet_tpu_torch.scripts.tree_ab kernels --parent TREE [--reps 7]
     python -m dfnet_tpu_torch.scripts.tree_ab step --parent TREE
@@ -7,15 +7,17 @@ timed beside this tree's on one card in one run.
 TREE is the root of another checkout of the repo (for example `git archive`
 of the parent commit unpacked into a gitignored directory such as proof/).
 
-kernels: builds TREE's fine_raw.cu and raw_bwd.cu with ops/build.py's nvcc
-flags into build/tree_ab/ (the C entry points must be this tree's), and
-this tree's through ops/build.py. At each of SHAPES (random D=8 skip-4
-nets from a seed, PE F=10, sorted uniform z) it calls this tree's
-wrappers, fine_raw_t and raw_bwd_t, with each tree's library in turn
-(parent, this, this, parent; each reading a CUDA-event median of --reps
-calls) and prints one JSON line a shape and kernel: each tree's median of
-its two readings, the readings, whether the two trees' outputs are
-bit-equal, and each tree's largest error against the plain version.
+kernels: builds TREE's SOURCES with ops/build.py's nvcc flags into
+build/tree_ab/ (the C entry points must be this tree's, but for a
+dfn_fine_composite from before the wrapper chose R: a shim drops R), and
+this tree's through ops/build.py. At each of SHAPES (random nets from a
+seed: the shipped fine net D=8 skip 4, F=10, at sorted uniform z; the
+proposal D=2 W=64 F=4 and the coarse net D=8 W=128 F=10 for
+coarse_sigma_t) it calls this tree's wrapper with each tree's library in
+turn (parent, this, this, parent; each reading a CUDA-event median of
+--reps calls) and prints one JSON line a shape and kernel: each tree's
+median of its two readings, the readings, whether the two trees' outputs
+are bit-equal, and each tree's largest error against the plain version.
 
 step: runs chip_smoke.py's phase_train (20 epochs of the shipped config
 through the CLI, then step_breakdown) from each tree's root in its own
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
@@ -38,18 +41,26 @@ import numpy as np
 import torch
 
 from dfnet_tpu_torch.models.embedder import get_embedder
-from dfnet_tpu_torch.models.nerfw import NeRFWConfig, init_nerfw_params
+from dfnet_tpu_torch.models.nerfw import NeRFWConfig, init_nerfw_params, init_sigma_mlp
 from dfnet_tpu_torch.ops import build
 from dfnet_tpu_torch.ops import nerf_kernels as nk
 from dfnet_tpu_torch.utils.timing import cuda_ms
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT = build.BUILD_ROOT.parent / "tree_ab"
-SOURCES = ("fine_raw", "raw_bwd")
+SOURCES = ("fine_raw", "raw_bwd", "fine_composite", "coarse_sigma")
 # (name, W, static, rays, samples): render chunks and one train step's sweeps
+# (fine_raw_t; raw_bwd_t on the train shapes), the culled and mono
+# composites (fine_composite_t), and the placement sweeps (coarse_sigma_t,
+# whose net the name gives)
 SHAPES = [("render", 128, False, 16384, 128), ("render", 256, False, 16384, 128),
           ("train-fine", 128, False, 1536, 128), ("train-static", 128, True, 1536, 64),
-          ("train-fine", 256, False, 1536, 128), ("train-static", 256, True, 1536, 64)]
+          ("train-fine", 256, False, 1536, 128), ("train-static", 256, True, 1536, 64),
+          ("composite-culled", 128, False, 16384, 24),
+          ("composite-mono", 128, False, 16384, 128),
+          ("composite-culled", 256, False, 16384, 24),
+          ("composite-mono", 256, False, 16384, 128),
+          ("sigma-proposal", 64, False, 16384, 64), ("sigma-coarse-net", 128, False, 16384, 64)]
 NEAR, FAR = 2.0, 6.0
 RESULT = "tree_ab result: "
 
@@ -58,6 +69,30 @@ def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+
+
+class _DropR:
+    """TREE's fine_composite library when its dfn_fine_composite chose R
+    itself (no R argument): the wrapper's call with R, R dropped."""
+
+    def __init__(self, lib, argtypes):
+        self._lib, self._argtypes = lib, argtypes
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "dfn_fine_composite":
+            return fn
+        fn.argtypes, fn.restype = self._argtypes, ctypes.c_int
+        return lambda *a: fn(*a[:13], *a[14:])
+
+
+def tree_signatures(tree: Path) -> dict:
+    """TREE's ops/build.py SIGNATURES."""
+    spec = importlib.util.spec_from_file_location(
+        "tree_ab_build", tree / "dfnet_tpu_torch" / "ops" / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SIGNATURES
 
 
 def build_parent(tree: Path) -> dict:
@@ -76,6 +111,9 @@ def build_parent(tree: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {tree}'s {n}.cu:\n{text}")
         libs[n] = ctypes.CDLL(str(lib))
+    sig = tree_signatures(tree)["dfn_fine_composite"]
+    if len(sig) == len(build.SIGNATURES["dfn_fine_composite"]) - 1:
+        libs["fine_composite"] = _DropR(libs["fine_composite"], sig)
     return libs
 
 
@@ -97,6 +135,38 @@ def inputs(W: int, static: bool, N: int, S: int, device, seed: int = 0):
     return (packed, t(ro), t(rd), t(z), t(dpt), spec), t(g)
 
 
+def sigma_inputs(shape: str, N: int, S: int, device, seed: int = 0):
+    """coarse_sigma_t's arguments on the proposal net (D=2, W=64, F=4) or the
+    coarse net (D=8, W=128, skip 4, F=10), from a seed."""
+    D, W, skips, F = (2, 64, (), 4) if shape == "sigma-proposal" else (8, 128, (4,), 10)
+    cfg = NeRFWConfig(D=D, W=W, skips=skips, in_xyz=6 * F + 3)
+    params = init_sigma_mlp(torch.Generator().manual_seed(seed), cfg, device)
+    emb = get_embedder(F)
+    packed = {k: v.detach().contiguous() for k, v in nk.pack_coarse_t(params, cfg, emb).items()}
+    rng = np.random.default_rng(seed + 1)
+    ro = rng.normal(size=(N, 3)).astype(np.float32) * 0.3
+    rd = rng.normal(size=(N, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    t = lambda a: torch.tensor(a, device=device)
+    return (packed, t(ro), t(rd), nk.spec_of(cfg, emb, fine=False), S, NEAR, FAR, False)
+
+
+def calls_at(shape: str, W: int, static: bool, N: int, S: int, device) -> dict:
+    """{kernel: (call, plain output)} of one shape."""
+    if shape.startswith("sigma"):
+        a = sigma_inputs(shape, N, S, device)
+        return {"coarse_sigma_t": (lambda: nk.coarse_sigma_t(*a), nk.coarse_sigma_plain(*a))}
+    sweep, g = inputs(W, static, N, S, device)
+    if shape.startswith("composite"):
+        return {"fine_composite_t": (lambda: nk.fine_composite_t(*sweep),
+                                     nk.fine_composite_plain(*sweep))}
+    calls = {"fine_raw_t": (lambda: nk.fine_raw_t(*sweep), nk.fine_raw_plain(*sweep))}
+    if shape.startswith("train"):
+        calls["raw_bwd_t"] = (lambda: nk.raw_bwd_t(*sweep[:5], g, sweep[5]),
+                              nk.raw_bwd_plain(*sweep[:5], g, sweep[5]))
+    return calls
+
+
 def max_err(got, want) -> float:
     """Largest |got - want| over the outputs, each over its own largest
     |want| (for raw_bwd_t's three gradients)."""
@@ -109,8 +179,9 @@ def max_err(got, want) -> float:
 def run_kernels(parent: Path, reps: int) -> int:
     device = torch.device("cuda")
     theirs = build_parent(parent)
-    build.load("fine_raw")
-    build.load("raw_bwd", "dfn_raw_bwd_stash")
+    build.build_all(list(SOURCES))
+    for n in SOURCES:
+        build.load(n, "dfn_raw_bwd_stash" if n == "raw_bwd" else "")
     ours = {n: build._loaded[n] for n in SOURCES}
 
     def use(libs):
@@ -120,11 +191,8 @@ def run_kernels(parent: Path, reps: int) -> int:
 
     trees = {"parent": theirs, "this": ours}
     for shape, W, static, N, S in SHAPES:
-        sweep, g = inputs(W, static, N, S, device)
-        calls = {"fine_raw_t": (lambda: nk.fine_raw_t(*sweep), nk.fine_raw_plain(*sweep))}
-        if shape.startswith("train"):
-            calls["raw_bwd_t"] = (lambda: nk.raw_bwd_t(*sweep[:5], g, sweep[5]),
-                                  nk.raw_bwd_plain(*sweep[:5], g, sweep[5]))
+        with torch.no_grad():
+            calls = calls_at(shape, W, static, N, S, device)
         for name, (fn, want) in calls.items():
             outs, ms = {}, {t: [] for t in trees}
             with torch.no_grad():
@@ -142,7 +210,7 @@ def run_kernels(parent: Path, reps: int) -> int:
                 flush=True)
             del outs
         use(ours)
-        del sweep, g, calls
+        del calls
         torch.cuda.empty_cache()
     return 0
 

@@ -29,7 +29,7 @@ from dfnet_tpu_torch.models.embedder import get_embedder
 from dfnet_tpu_torch.models.nerfw import NeRFWConfig, init_nerfw_params, init_sigma_mlp
 from dfnet_tpu_torch.ops import mlp_stack as ms
 from dfnet_tpu_torch.ops import nerf_kernels as nk
-from dfnet_tpu_torch.ops.tolerances import FLIP_CAP, FLIP_SHARE, TOL_RAW
+from dfnet_tpu_torch.ops.tolerances import FLIP_CAP, FLIP_SHARE, TOL_COMP, TOL_RAW
 from dfnet_tpu_torch.scripts import bench_int8_wide as probe
 
 NEAR, FAR = 0.5, 3.5
@@ -187,6 +187,91 @@ def test_fine_raw_kernel_occupancy_and_width_limit(cuda):
     wide = nk.KernelSpec(D=2, W=288, skip=1, F=10, fine=True)
     with pytest.raises(ValueError, match="W <= 256"):
         nk.fine_raw_t(packed, ro, rd, z, dpt, wide)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [24, 40, 128, 192])
+@pytest.mark.parametrize("W", [64, 128, 256])
+def test_fine_composite_kernel_matches_plain_shipped_depth(cuda, W, S):
+    """fine_composite_t at D=8 skip 4, F=10 (the shipped fine net), 37 rays
+    (a ragged last block at every R): against fine_composite_plain under
+    the FLIP_SHARE rule at TOL_COMP; against _composite_plain of
+    fine_raw_t's rows on the card at 1e-5 (the same sweep, bit for bit, so
+    only the composite's order differs); one launch counted; a second call
+    gives the same bits."""
+    packed, spec, ro, rd, z, dpt, _ = _sweep_inputs(8, W, 4, False, 37, S, cuda, W + S + 1)
+    args = (packed, ro, rd, z, dpt, spec)
+    nk.reset_launches()
+    got = nk.fine_composite_t(*args)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["fine_composite_t"] == 1
+    assert got.shape == (nk.N_COMP, 37)
+    _flip_close(got, nk.fine_composite_plain(*args), TOL_COMP)
+    torch.testing.assert_close(got, nk._composite_plain(nk.fine_raw_t(*args), z),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, nk.fine_composite_t(*args))
+
+
+@pytest.mark.gpu
+def test_fine_composite_kernel_occupancy_and_width_limit(cuda):
+    """Two blocks an SM at W <= 128, one at W = 256, at the culled and the
+    mono S; the shared bytes are those the CPU-side geometry implies; a
+    wider net raises."""
+    for S in (24, 128):
+        for W in (64, 128, 256):
+            blocks, smem, R = nk.fine_composite_occupancy(W, 10, S)
+            assert blocks == (2 if W <= 128 else 1), (W, S, blocks)
+            assert smem == nk.fine_composite_smem_bytes(W, 10, S)
+            assert R == nk.fine_composite_geometry(S)[0]
+    packed, spec, ro, rd, z, dpt, _ = _sweep_inputs(2, 64, 1, False, 4, 8, cuda, 0)
+    wide = nk.KernelSpec(D=2, W=288, skip=1, F=10, fine=True)
+    with pytest.raises(ValueError, match="W <= 256"):
+        nk.fine_composite_t(packed, ro, rd, z, dpt, wide)
+
+
+def _sigma_inputs(D, W, skip, F, N, device, seed):
+    cfg = NeRFWConfig(D=D, W=W, skips=(skip,) if skip > 0 else (), in_xyz=6 * F + 3)
+    params = init_sigma_mlp(torch.Generator().manual_seed(seed), cfg, device)
+    emb = get_embedder(F)
+    packed = nk.pack_coarse_t(params, cfg, emb)
+    ro, rd = _rays(N, seed=seed, device=device)
+    return packed, nk.spec_of(cfg, emb, fine=False), ro, rd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lindisp", [False, True])
+@pytest.mark.parametrize("D,W,skip,F,S", [
+    (2, 64, -1, 4, 64),              # the proposal net at the render's S
+    (2, 64, -1, 4, 32),              # ... at the culled schedule's S
+    (8, 128, 4, 10, 64),             # the shipped coarse net
+])
+def test_coarse_sigma_kernel_matches_plain_shipped_shapes(cuda, D, W, skip, F, S, lindisp):
+    """coarse_sigma_t on the proposal and the shipped coarse trunks, 37 rays
+    (a ragged last tile), linear and lindisp z: against coarse_sigma_plain
+    under the FLIP_SHARE rule at TOL_RAW; one launch counted; a second call
+    gives the same bits."""
+    packed, spec, ro, rd = _sigma_inputs(D, W, skip, F, 37, cuda, W + S)
+    args = (packed, ro, rd, spec, S, NEAR, FAR, lindisp)
+    nk.reset_launches()
+    got = nk.coarse_sigma_t(*args)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["coarse_sigma_t"] == 1
+    assert got.shape == (37, S)
+    _flip_close(got, nk.coarse_sigma_plain(*args), TOL_RAW)
+    assert torch.equal(got, nk.coarse_sigma_t(*args))
+
+
+@pytest.mark.gpu
+def test_coarse_sigma_kernel_occupancy_and_width_limit(cuda):
+    """Three blocks an SM at W <= 64 (the proposal net), two at W <= 128
+    (the coarse net), one at W = 256; a wider net raises."""
+    assert nk.coarse_sigma_occupancy(64, 4)[0] == 3
+    assert nk.coarse_sigma_occupancy(128, 10)[0] == 2
+    assert nk.coarse_sigma_occupancy(256, 10)[0] == 1
+    packed, spec, ro, rd = _sigma_inputs(2, 64, -1, 4, 4, cuda, 0)
+    wide = nk.KernelSpec(D=2, W=288, skip=-1, F=4, fine=False)
+    with pytest.raises(ValueError, match="W <= 256"):
+        nk.coarse_sigma_t(packed, ro, rd, wide, 16, NEAR, FAR)
 
 
 def _bwd_close(N, packed, spec, ro, rd, z, dpt, g):
