@@ -28,8 +28,8 @@ Phases (any failure exits non-zero):
                sweep at the case's shapes (a yardstick the port never
                calls); for fine_composite_t fine_raw_t's time on the same
                inputs (the same sweep without the composite); and, in the
-               log lines of fine_raw_t, fine_composite_t and
-               coarse_sigma_t only, ptxas' registers and spills and the
+               log lines of fine_raw_t, fine_composite_t, coarse_sigma_t
+               and proposal_z_rows, ptxas' registers and spills and the
                blocks an SM of the kernel the width runs. coarse_sigma_t
                also runs at the trainer's eval render of one val view;
   3. e2e     — save assets/nerfh_synthetic_301.npz as a checkpoint and run
@@ -60,7 +60,12 @@ Phases (any failure exits non-zero):
                their plain versions (int8 exactly, also on weights that keep
                the stack non-zero; bf16 under bf16_stack_agreement, which
                must reject each faulty control), the marginal ms a layer
-               and the int8/bf16 ratio;
+               and the int8/bf16 ratio; before it, the warpgroup MMA
+               instructions (HGMMA, IGMMA) in the SASS of every mlp_stack
+               kernel (each must hold some) and each kernel's registers and
+               occupancy; after it, beside each stack at W=256, D=6, the
+               time of D torch.matmul / torch._int_mm calls over its shapes
+               (a yardstick the port never calls);
   8. train   — the port's stage-1 CLI trains the shipped full-width config
                from a seeded init on the synthetic scene for TRAIN_EPOCHS;
                the step must be the kernel step, every step must launch
@@ -386,29 +391,81 @@ def fine_raw_yardstick(a) -> float:
     return ms
 
 
-def kernel_build(name: str, spec, S: int) -> str:
-    """For the log only, not measured: ptxas' register and spill lines of
-    the kernel this width runs (<source>_kernel<NJ>: NJ output fragments a
-    warp, 4 at W > 128, 2 at W > 64, and 2 at W <= 64 too but for
-    coarse_sigma_t's 1) from the library's build log, and the blocks an SM
-    and shared bytes a block from the CUDA occupancy calculator (and the
-    rays a block, for fine_composite_t)."""
+def ptxas_lines(source: str, kernel: str) -> list:
+    """ptxas' register and spill lines of the kernels of csrc/<source>.cu
+    whose mangled name matches the regex `kernel`, from the library's build
+    log (empty when the library came from disk)."""
     from dfnet_tpu_torch.ops import build
-    from dfnet_tpu_torch.ops import nerf_kernels as nk
 
-    source = name[:-2]
-    nj = 4 if spec.W > 128 else (2 if spec.W > 64 or source != "coarse_sigma" else 1)
     lines, cur = [], None
     for line in build.ptxas_report(source).splitlines():
         if "Compiling entry function" in line:
-            cur = re.search(source + r"_kernelILi(\d+)E", line)
-        elif cur and int(cur[1]) == nj and ("registers" in line or "spill" in line):
+            cur = re.search(kernel, line)
+        elif cur and ("registers" in line or "spill" in line):
             lines.append(line.split(":", 1)[-1].strip())
+    return lines
+
+
+SWEEP_SOURCES = {"coarse_sigma_t": "coarse_sigma", "fine_raw_t": "fine_raw",
+                 "fine_composite_t": "fine_composite", "proposal_z_rows": "proposal_z"}
+
+
+def kernel_build(name: str, spec, S: int) -> str:
+    """For the log only, not measured: ptxas' register and spill lines of
+    the kernel this width runs (<source>_kernel<NJ>: NJ output fragments a
+    warp, 4 at W > 128, 2 at W > 64, and 2 at W <= 64 too but for the
+    sigma-only sweeps' 1) from the library's build log, and the blocks an
+    SM and shared bytes a block from the CUDA occupancy calculator (and the
+    rays a block, for fine_composite_t and proposal_z_rows)."""
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+
+    source = SWEEP_SOURCES[name]
+    sigma_only = source in ("coarse_sigma", "proposal_z")
+    nj = 4 if spec.W > 128 else (2 if spec.W > 64 or not sigma_only else 1)
+    lines = ptxas_lines(source, source + rf"_kernelILi{nj}E")
     occ = {"fine_raw_t": lambda: nk.fine_raw_occupancy(spec.W, spec.F),
            "fine_composite_t": lambda: nk.fine_composite_occupancy(spec.W, spec.F, S),
-           "coarse_sigma_t": lambda: nk.coarse_sigma_occupancy(spec.W, spec.F)}[name]()
-    rays = f" rays_per_block={occ[2]}" if name == "fine_composite_t" else ""
+           "coarse_sigma_t": lambda: nk.coarse_sigma_occupancy(spec.W, spec.F),
+           "proposal_z_rows": lambda: nk.proposal_z_occupancy(spec.W, spec.F, S)}[name]()
+    rays = f" rays_per_block={occ[2]}" if len(occ) > 2 else ""
     return f"NJ={nj} ptxas {lines} blocks_per_sm={occ[0]} smem_bytes={occ[1]}{rays}"
+
+
+def stack_build(dtype: str, W: int) -> str:
+    """For the log only, not measured: ptxas' register and spill lines of
+    the mlp_stack kernel of a type and width, the blocks an SM and shared
+    bytes a block from the CUDA occupancy calculator, and the block's
+    geometry (consumer warpgroups, rows a tile, weight-ring stages)."""
+    from dfnet_tpu_torch.ops import mlp_stack as ms
+
+    T = "13__nv_bfloat16" if dtype == "bf16" else "a"
+    lines = ptxas_lines("mlp_stack", rf"mlp_stack_kernelI{T}Li{W}E")
+    blocks, smem = ms.mlp_stack_occupancy(dtype, W)
+    g = ms.mlp_stack_geometry(dtype, W)
+    return (f"ptxas {lines} blocks_per_sm={blocks} smem_bytes={smem} "
+            f"consumer_warpgroups={g['ncw']} rows_per_tile={g['rows']} stages={g['stages']}")
+
+
+def stack_sass() -> dict:
+    """Warpgroup MMA instructions (HGMMA bf16, IGMMA int8) in the SASS of
+    each kernel of the built mlp_stack library (cuobjdump -sass), by
+    kernel: {"<type> W=<width>": {instruction: count}}."""
+    from dfnet_tpu_torch.ops import build
+
+    lib = build.build_all(["mlp_stack"])["mlp_stack"]
+    cuobjdump = str(Path(build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*mlp_stack_kernelI(13__nv_bfloat16|a)Li(\d+)E", line)
+        if m:
+            cur = f"{'bf16' if m[1] != 'a' else 'int8'} W={m[2]}"
+            out[cur] = {}
+        elif cur:
+            for op in re.findall(r"\b[HI]GMMA\.\S+", line):
+                out[cur][op] = out[cur].get(op, 0) + 1
+    return out
 
 
 def measure(name, a, k, asset, sched):
@@ -465,7 +522,7 @@ def measure(name, a, k, asset, sched):
         + (f" fine_raw_ms={case['fine_raw_ms']:.3f} "
            f"(ratio {ms / case['fine_raw_ms']:.3f})" if name == "fine_composite_t" else "")
         + (f" build (not measured): {kernel_build(name, spec, S)}"
-           if name in ("fine_raw_t", "fine_composite_t", "coarse_sigma_t") else "")
+           if name in SWEEP_SOURCES else "")
         + (f" parts={json.dumps(case['parts'])} stash floor (written and read once "
            f"at the HBM rate) {2 * case['parts']['stash_bytes'] / HBM_BYTES_S * 1e3:.4f} ms"
            if "parts" in case else ""))
@@ -756,14 +813,48 @@ def phase_frozen(device):
     return out
 
 
-def phase_probe(device):
-    """The layer-stack probe at W=256 and W=128: kernels against plain
-    (not counted), then the timed probe run (counted)."""
+def stack_yardstick(dtype: str, x, ws) -> float:
+    """ms of D torch.matmul (bf16, chained) or torch._int_mm (int8, each on
+    x: its int32 output is not an int8 input) calls over the stack's
+    shapes, CUDA events; a yardstick the port never calls."""
     import torch
 
+    from dfnet_tpu_torch.utils.timing import cuda_ms
+
+    if dtype == "bf16":
+        def run():
+            h = x
+            for w in ws:
+                h = torch.matmul(h, w.t())
+    else:
+        def run():
+            for w in ws:
+                torch._int_mm(x, w.t())
+    ms = cuda_ms(run, reps=5)
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_probe(device):
+    """The layer-stack probe at W=256 and W=128: kernels against plain
+    (not counted), then the timed probe run (counted); the stacks' build
+    (registers, occupancy, warpgroup MMA instructions in the SASS) and, at
+    the widest shape, the D-matmul yardstick."""
+    import torch
+
+    from dfnet_tpu_torch.ops import mlp_stack as ms
     from dfnet_tpu_torch.ops import nerf_kernels as nk
     from dfnet_tpu_torch.scripts import bench_int8_wide as probe
 
+    sass = stack_sass()
+    for kern, ops in sass.items():
+        log(f"[probe] SASS of mlp_stack {kern}: warpgroup MMA {ops}")
+    for dtype in probe.DTYPES:
+        for W in ms.WIDTHS:
+            if not sass.get(f"{dtype} W={W}"):
+                raise SystemExit(f"mlp_stack {dtype} W={W}: no warpgroup MMA in its SASS")
+            log(f"[probe] build of mlp_stack {dtype} W={W} (not measured): "
+                f"{stack_build(dtype, W)}")
     out = {}
     for W in (256, 128):
         checks = probe.check(W, PROBE_POINTS, device)
@@ -777,20 +868,23 @@ def phase_probe(device):
     D = max(probe.DEPTHS)
     cases = []
     for dtype in probe.DTYPES:
-        tdt = torch.int8 if dtype == "int8" else torch.bfloat16
-        shapes = (torch.empty((PROBE_POINTS, 256), dtype=tdt, device="meta"),
-                  torch.empty((D, 256, 256), dtype=tdt, device="meta"))
-        bound_ms, bound_by = bound(f"mlp_stack_{dtype}", shapes)
+        x, ws = ms.probe_inputs(dtype, 256, PROBE_POINTS, D, device)
+        bound_ms, bound_by = bound(f"mlp_stack_{dtype}", (x, ws))
+        yard = stack_yardstick(dtype, x, ws)
+        del x, ws
+        torch.cuda.empty_cache()
         cases.append(dict(
             name=f"mlp_stack_{dtype}", asset="probe data", schedule="probe",
             shape=f"P={PROBE_POINTS} W=256 D={D}",
             max_abs_err=max(c["max_abs_err"] for c in out[256]["checks"][dtype].values()),
             ms=out[256]["run"][dtype]["ms"][D],
             plain_ms=out[256]["checks"][dtype][D]["plain_ms"],
-            bound_ms=bound_ms, bound_by=bound_by))
+            bound_ms=bound_ms, bound_by=bound_by, yardstick_matmul_ms=yard))
+        log(f"[probe] mlp_stack_{dtype} P={PROBE_POINTS} W=256 D={D}: ms={cases[-1]['ms']:.3f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) yardstick_matmul_ms={yard:.3f}")
     launches = {k: sum(o["launches"][k] for o in out.values())
                 for k in ("mlp_stack_bf16", "mlp_stack_int8")}
-    return dict(widths=out, cases=cases, launches=launches)
+    return dict(widths=out, cases=cases, launches=launches, sass=sass)
 
 
 def phase_train(device):

@@ -45,9 +45,11 @@ SIGNATURES = {
     "dfn_raw_bwd_wgrad": [_P, _P, _P, _I, _L, _L, _I, _I, _P, _L, _P],
     "dfn_raw_bwd_reduce": [_P, _I, _L, _I, _I, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "dfn_proposal_z": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _I, _I,
-                       _I, _I, _P, _P],
+                       _I, _I, _I, _P, _P],
+    "dfn_proposal_z_occupancy": [_I, _I, _I, _I, _P, _P],
     "dfn_mlp_stack_bf16": [_P, _P, _I, _I, _I, _P, _P],
     "dfn_mlp_stack_int8": [_P, _P, _I, _I, _I, _P, _P],
+    "dfn_mlp_stack_occupancy": [_I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -10,138 +10,520 @@
 // Output: the first 8 features of each point after the last layer, (P, 8)
 // float32.
 //
-// Layout: a block owns TP = 64 points; their activations stay in shared
-// memory between layers (two ping-pong tiles). Tiles and weights are stored
-// k-blocked, [W/16][rows][16]: a 16 x 16 fragment is one contiguous block
-// (ldm 16) that starts on a multiple of 256 elements, so every WMMA load
-// and store gets the 256-bit aligned pointer it requires. (Row-major int8
-// would put every odd 16-element k step on a 16-byte boundary.) The
-// wrapper repacks the weights, (D, W, W) -> (D, W/16, W, 16). Each warp
-// takes 16 x 16 output tiles in turn: WMMA 16x16x16 fragments (bf16 ->
-// float32, or s8 -> int32) with the activations from shared memory and the
-// weights from global memory (at most 6 x 128 KB in bf16, so they stay in
-// L2); the epilogue requantises into the other tile, where an output tile
-// is again one contiguous block.
-//
 // Bound on the card: operations. A layer is 2 W^2 operations a point
 // against W (int8) or 2 W (bf16) bytes of input read once for the whole
 // stack: at W=256, D=6 about 3e3 operations a byte, far above the card's
 // ~295 flop/B balance point. Peaks: 989 TFLOP/s bf16, 1,979 TOP/s int8.
+// What binds a design short of that is the weights: every tile of rows
+// reads the whole stack (D W^2 elements) from L2 again, so a tile's
+// operations per L2 byte are its rows (bf16) or twice its rows (int8).
+//
+// Design (Hopper's warpgroup MMA; the first version ran WMMA 16x16x16
+// with every B fragment read from L2 at every k-step, at 9% of the bound):
+//   - a block is one producer warpgroup and NCW consumer warpgroups
+//     (NCW = 4 at W <= 128, 2 above, where the 64 x W accumulator takes
+//     W/2 registers a thread); each consumer owns 64 rows of a tile of
+//     64 NCW rows. Blocks are persistent, one an SM, and walk the tiles;
+//   - a consumer's activations stay in shared memory as its wgmma A
+//     operand: K-major, in 128-byte panels of 64 rows under the 128-byte
+//     swizzle, read through matrix descriptors. The input tile arrives by
+//     TMA (a 2D tensor map, CU_TENSOR_MAP_SWIZZLE_128B, rows past P
+//     zero-filled), so it lands swizzled as the descriptor expects;
+//   - the weights arrive in panels of W output rows by 128 bytes of input
+//     columns ((out, in) row-major is K-major already), by TMA into a ring
+//     of STAGES buffers with a full and an empty mbarrier each. One
+//     producer thread keeps the ring full across layers and tiles, another
+//     loads each consumer's next input tile as soon as the consumer frees
+//     it; every consumer of the block reads each panel, so a panel serves
+//     64 NCW rows;
+//   - a layer is wgmma.mma_async m64nWk16 (bf16 -> f32) or m64nWk32 (s8 ->
+//     s32), four a panel, the sums in registers. A stage returns to the
+//     producer once the wgmma group that read it has completed (wait_group
+//     1 after the next panel's group is committed);
+//   - the epilogue works in place: after the layer's last group completes,
+//     the warpgroup writes requant(sum) over its own A tile in the
+//     swizzled layout, then fence.proxy.async and a named barrier of its
+//     128 threads before the next layer's wgmma reads it. After the last
+//     layer the first 8 columns go to global memory straight from the
+//     registers that hold them (0 .. 3 of every thread);
+//   - setmaxnreg gives the producer 40 registers and the consumers the
+//     rest. Widths whose K is not a whole number of 128-byte panels (int8
+//     at W = 64, 192) run on zero-filled columns up to the next panel.
+// Measured and kept (PERF.md, Findings): a wgmma.fence before
+// every panel's group (without it ptxas serialised the products, C7520);
+// the int8 requantisation packed by cvt.pack.sat (22% at W = 256); four
+// consumers at W <= 128 rather than two. Measured and not kept: consumers
+// taking turns at the tensor cores (no gain at W = 256, 10% slower at W = 128); a
+// cluster of two blocks sharing each panel by TMA multicast (half the L2
+// reads, but twice the time, loads alone included); three consumers at
+// W = 256 (ptxas needs 154 registers a thread, the cap is 128).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int TP = 64;        // points per block
-constexpr int N_OUT = 8;      // features written per point
+typedef __nv_bfloat16 bf16;
 
-template <typename T> struct Traits;
-template <> struct Traits<__nv_bfloat16> { typedef float acc; };
-template <> struct Traits<signed char> { typedef int acc; };
+constexpr int WG = 128;               // threads a warpgroup
+constexpr int ROWS = 64;              // rows a consumer warpgroup owns (wgmma's M)
+constexpr int PANEL = 128;            // bytes of K a panel row holds (the swizzle span)
+constexpr int ATOM = ROWS * PANEL;    // bytes of one 64-row panel of an A tile
+constexpr int N_OUT = 8;              // features written a point
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;    // dynamic shared bytes a block may ask for
+constexpr int ALIGN = 1024;           // the 128-byte swizzle repeats every 8 rows
+constexpr int BAR_BYTES = 256;        // the mbarriers
+constexpr int PRODUCER_REGS = 40;
 
-__device__ inline __nv_bfloat16 requant(float v) { return __float2bfloat16(fmaxf(v, 0.f)); }
-__device__ inline signed char requant(int v) { return (signed char)min(max(v >> 7, 0), 127); }
-__device__ inline float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ inline float to_f32(signed char v) { return (float)v; }
+// The shared-memory geometry of the kernel of a type and width
+// (ops/mlp_stack.py::mlp_stack_geometry mirrors it).
+template <typename T, int W>
+struct Geo {
+  static constexpr int E = sizeof(T);
+  static constexpr int NCW = W <= 128 ? 4 : 2;                  // consumer warpgroups
+  static constexpr int KP = (W * E + PANEL - 1) / PANEL;        // panels a layer
+  static constexpr int A_BYTES = KP * ATOM;                     // a consumer's tile
+  static constexpr int STAGE_BYTES = W * PANEL;                 // a weight panel
+  static constexpr int FREE = SMEM_LIMIT - ALIGN - BAR_BYTES - NCW * A_BYTES;
+  static constexpr int STAGES = FREE / STAGE_BYTES < MAX_STAGES ? FREE / STAGE_BYTES
+                                                                 : MAX_STAGES;
+  static constexpr int SMEM = ALIGN + NCW * A_BYTES + STAGES * STAGE_BYTES + BAR_BYTES;
+  static constexpr int THREADS = (NCW + 1) * WG;
+  // registers a consumer thread gets: the block's share (the launch bound,
+  // in steps of 8) less the producer's 40, over the consumers
+  static constexpr int CONSUMER_REGS =
+      ((65536 / THREADS / 8 * 8) * THREADS - PRODUCER_REGS * WG) / (NCW * WG) / 8 * 8 > 232
+          ? 232
+          : ((65536 / THREADS / 8 * 8) * THREADS - PRODUCER_REGS * WG) / (NCW * WG) / 8 * 8;
+  static_assert(STAGES >= 2, "the weight ring needs two stages");
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
+};
 
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
+template <typename T> struct Acc;
+template <> struct Acc<bf16> { typedef float type; };
+template <> struct Acc<int8_t> { typedef int type; };
 
-template <typename T>
-__host__ __device__ inline size_t tile_bytes(int W) {
-  return align128((size_t)TP * W * sizeof(T));
+__device__ inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// element (r, c) of a k-blocked tile with `rows` rows
-__device__ inline int kblocked(int r, int c, int rows) {
-  return ((c / 16) * rows + r) * 16 + c % 16;
+// ---- mbarriers and TMA ----------------------------------------------------
+
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ inline void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Spins until the barrier's phase of this parity has completed; traps
+// (a launch error, not a hung card) if it never does.
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (int n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (n > (1 << 26)) __trap();
+  }
+}
+// A 2D box of the tensor map at (c0 columns, c1 rows) into shared memory,
+// its bytes reported to the barrier.
+__device__ inline void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-mlp_stack_kernel(const T* __restrict__ x, const T* __restrict__ w, int P, int W, int D,
+// ---- warpgroup MMA --------------------------------------------------------
+
+__device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// The sums are written by the asynchronous MMA: after a wait, tie every
+// register to that point so that no read of it moves above the wait.
+template <int N>
+__device__ inline void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ inline void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Matrix descriptor of a K-major operand under the 128-byte swizzle: start
+// address >> 4, leading byte offset 1 (unused by this layout), stride byte
+// offset 1024 (8 rows of 128 B) >> 4, layout type 1 (128-byte swizzle).
+// The tiles start 1024-byte aligned; a k-step inside a panel advances the
+// start address by its 32 bytes.
+__device__ inline uint64_t desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define WG_R8(C, i) C(i), C(i + 1), C(i + 2), C(i + 3), C(i + 4), C(i + 5), C(i + 6), C(i + 7)
+#define WG_R32(C, i) WG_R8(C, i), WG_R8(C, i + 8), WG_R8(C, i + 16), WG_R8(C, i + 24)
+#define WG_OF(i) "+f"(d[i])
+#define WG_OI(i) "+r"(d[i])
+#define WG_REGS0 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_REGS1 \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_REGS2 \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_REGS3 \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "    \
+  "%125, %126, %127"
+#define WG_PRED(i) "{\n.reg .pred p;\nsetp.ne.b32 p, %" #i ", 0;\n"
+#define WG_BF16(n) "wgmma.mma_async.sync.aligned.m64n" #n "k16.f32.bf16.bf16 {"
+#define WG_S8(n) "wgmma.mma_async.sync.aligned.m64n" #n "k32.s32.s8.s8 {"
+
+// d (+)= A . B over one k-step: A 64 x k, B W x k, both K-major in shared
+// memory; scale = 0 starts the sums afresh. One overload a type and width.
+__device__ inline void mma(float (&d)[32], uint64_t a, uint64_t b, int scale) {
+  asm volatile(WG_PRED(34) WG_BF16(64) WG_REGS0 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : WG_R32(WG_OF, 0) : "l"(a), "l"(b), "r"(scale));
+}
+__device__ inline void mma(float (&d)[64], uint64_t a, uint64_t b, int scale) {
+  asm volatile(WG_PRED(66) WG_BF16(128) WG_REGS0 ", " WG_REGS1 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+               : WG_R32(WG_OF, 0), WG_R32(WG_OF, 32) : "l"(a), "l"(b), "r"(scale));
+}
+__device__ inline void mma(float (&d)[96], uint64_t a, uint64_t b, int scale) {
+  asm volatile(WG_PRED(98) WG_BF16(192) WG_REGS0 ", " WG_REGS1 ", " WG_REGS2
+               "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+               : WG_R32(WG_OF, 0), WG_R32(WG_OF, 32), WG_R32(WG_OF, 64)
+               : "l"(a), "l"(b), "r"(scale));
+}
+__device__ inline void mma(float (&d)[128], uint64_t a, uint64_t b, int scale) {
+  asm volatile(WG_PRED(130) WG_BF16(256) WG_REGS0 ", " WG_REGS1 ", " WG_REGS2 ", " WG_REGS3
+               "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+               : WG_R32(WG_OF, 0), WG_R32(WG_OF, 32), WG_R32(WG_OF, 64), WG_R32(WG_OF, 96)
+               : "l"(a), "l"(b), "r"(scale));
+}
+__device__ inline void mma(int (&d)[32], uint64_t a, uint64_t b, int scale) {
+  asm volatile(WG_PRED(34) WG_S8(64) WG_REGS0 "}, %32, %33, p;\n}\n"
+               : WG_R32(WG_OI, 0) : "l"(a), "l"(b), "r"(scale));
+}
+__device__ inline void mma(int (&d)[64], uint64_t a, uint64_t b, int scale) {
+  asm volatile(WG_PRED(66) WG_S8(128) WG_REGS0 ", " WG_REGS1 "}, %64, %65, p;\n}\n"
+               : WG_R32(WG_OI, 0), WG_R32(WG_OI, 32) : "l"(a), "l"(b), "r"(scale));
+}
+__device__ inline void mma(int (&d)[96], uint64_t a, uint64_t b, int scale) {
+  asm volatile(WG_PRED(98) WG_S8(192) WG_REGS0 ", " WG_REGS1 ", " WG_REGS2 "}, %96, %97, p;\n}\n"
+               : WG_R32(WG_OI, 0), WG_R32(WG_OI, 32), WG_R32(WG_OI, 64)
+               : "l"(a), "l"(b), "r"(scale));
+}
+__device__ inline void mma(int (&d)[128], uint64_t a, uint64_t b, int scale) {
+  asm volatile(WG_PRED(130) WG_S8(256) WG_REGS0 ", " WG_REGS1 ", " WG_REGS2 ", " WG_REGS3
+               "}, %128, %129, p;\n}\n"
+               : WG_R32(WG_OI, 0), WG_R32(WG_OI, 32), WG_R32(WG_OI, 64), WG_R32(WG_OI, 96)
+               : "l"(a), "l"(b), "r"(scale));
+}
+
+// ---- requantisation and the in-place epilogue -----------------------------
+
+__device__ inline bf16 requant(float v) { return __float2bfloat16(fmaxf(v, 0.f)); }
+__device__ inline int8_t requant(int v) { return (int8_t)min(max(v >> 7, 0), 127); }
+__device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ inline float to_f32(int8_t v) { return (float)v; }
+
+// Registers (4j + 2h, 4j + 2h + 1) of thread (warp, lane) hold row 16 warp
+// + lane / 4 + 8 h, columns 8 j + 2 (lane % 4) + {0, 1}. Writes their
+// requantised pair over the A tile at `tile`, at the byte the 128-byte
+// swizzle gives the pair's first element (row r at 128 r in its 64-row
+// panel, 16-byte chunk k at chunk k ^ (r % 8)).
+__device__ inline void store_pair(uint32_t tile, int warp, int lane, int j, int h, float v0,
+                                  float v1) {
+  const int r = 16 * warp + lane / 4 + 8 * h;
+  const uint32_t at = tile + (j / 8) * ATOM + r * PANEL + (((j % 8) ^ (r % 8)) << 4) +
+                      (lane % 4) * 4;
+  const __nv_bfloat162 p = __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
+               "r"(*reinterpret_cast<const uint32_t*>(&p))
+               : "memory");
+}
+__device__ inline void store_pair(uint32_t tile, int warp, int lane, int j, int h, int v0,
+                                  int v1) {
+  const int r = 16 * warp + lane / 4 + 8 * h;
+  const uint32_t at = tile + (j / 16) * ATOM + r * PANEL + ((((j / 2) % 8) ^ (r % 8)) << 4) +
+                      (j % 2) * 8 + (lane % 4) * 2;
+  // requant of both: max(v >> 7, 0), then cvt.pack's saturation at 127;
+  // v0 in the low byte
+  uint32_t p;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n"
+      : "=r"(p)
+      : "r"(max(v1 >> 7, 0)), "r"(max(v0 >> 7, 0)), "r"(0));
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(at), "h"((uint16_t)p) : "memory");
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(Geo<T, W>::THREADS, 1)
+mlp_stack_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap, int P, int D,
                  float* __restrict__ out) {
-  typedef typename Traits<T>::acc A;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* cur = reinterpret_cast<T*>(smem);
-  T* nxt = reinterpret_cast<T*>(smem + tile_bytes<T>(W));
-  A* scratch = reinterpret_cast<A*>(smem + 2 * tile_bytes<T>(W));
-  const long long p0 = (long long)blockIdx.x * TP;
+  typedef Geo<T, W> G;
+  typedef typename Acc<T>::type A;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + ALIGN - 1) / ALIGN * ALIGN;
+  const uint32_t a0 = base;                                   // NCW A tiles
+  const uint32_t ring = base + G::NCW * G::A_BYTES;           // STAGES weight panels
+  const uint32_t bars = ring + G::STAGES * G::STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (G::STAGES + s); };
+  auto xfull = [&](int c) { return bars + 8 * (2 * G::STAGES + c); };
+  auto xempty = [&](int c) { return bars + 8 * (2 * G::STAGES + G::NCW + c); };
+  const int tile_rows = ROWS * G::NCW;
+  const int tiles = (P + tile_rows - 1) / tile_rows;
+  constexpr int PANEL_ELEMS = PANEL / G::E;
 
-  // the block's input rows, 16 B a thread (within one k-block); rows past
-  // P are zero
-  const int vec = 16 / sizeof(T), per_row = W / vec;
-  for (int idx = threadIdx.x; idx < TP * per_row; idx += NTHREADS) {
-    const int r = idx / per_row, c = (idx % per_row) * vec;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (p0 + r < P) v = *reinterpret_cast<const int4*>(x + (p0 + r) * W + c);
-    *reinterpret_cast<int4*>(cur + kblocked(r, c, TP)) = v;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), G::NCW);
+    }
+    for (int c = 0; c < G::NCW; ++c) {
+      mbar_init(xfull(c), 1);
+      mbar_init(xempty(c), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int mt = TP / 16, nt = W / 16;
-  A* scr = scratch + warp * 256;
-  for (int l = 0; l < D; ++l) {
-    const T* wl = w + (size_t)l * W * W;
-    for (int tile = warp; tile < mt * nt; tile += NWARPS) {
-      const int m0 = (tile / nt) * 16, n0 = (tile % nt) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, A> acc;
-      wmma::fill_fragment(acc, (A)0);
-      for (int kb = 0; kb < W / 16; ++kb) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b;
-        wmma::load_matrix_sync(a, cur + kblocked(m0, kb * 16, TP), 16);
-        wmma::load_matrix_sync(b, wl + (size_t)kblocked(n0, kb * 16, W), 16);
-        wmma::mma_sync(acc, a, b, acc);
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {
+    // the producer warpgroup: thread 0 streams the weight panels, thread
+    // 32 the consumers' input tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int l = 0; l < D; ++l)
+          for (int p = 0; p < G::KP; ++p) {
+            mbar_wait(empty(stage), phase ^ 1);
+            mbar_expect_tx(full(stage), G::STAGE_BYTES);
+            tma_load(ring + stage * G::STAGE_BYTES, &wmap, p * PANEL_ELEMS, l * W, full(stage));
+            if (++stage == G::STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+    } else if (threadIdx.x == 32) {
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int c = 0; c < G::NCW; ++c) {
+          mbar_wait(xempty(c), phase ^ 1);
+          mbar_expect_tx(xfull(c), G::A_BYTES);
+          for (int p = 0; p < G::KP; ++p)
+            tma_load(a0 + c * G::A_BYTES + p * ATOM, &xmap, p * PANEL_ELEMS,
+                     tile * tile_rows + c * ROWS, xfull(c));
+        }
+        phase ^= 1;
       }
-      wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      T* dst = nxt + kblocked(m0, n0, TP);     // the output tile's block
-      for (int e = lane; e < 256; e += 32) dst[e] = requant(scr[e]);
-      __syncwarp();
     }
-    __syncthreads();
-    T* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    return;
   }
-  for (int idx = threadIdx.x; idx < TP * N_OUT; idx += NTHREADS) {
-    const int r = idx / N_OUT, c = idx % N_OUT;
-    if (p0 + r < P) out[(p0 + r) * N_OUT + c] = to_f32(cur[kblocked(r, c, TP)]);
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::CONSUMER_REGS));
+  const int c = wg - 1;                       // this consumer
+  const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  const uint32_t tile_a = a0 + c * G::A_BYTES;
+  A d[W / 2];
+  int stage = 0;
+  uint32_t phase = 0, xphase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    mbar_wait(xfull(c), xphase);
+    xphase ^= 1;
+    for (int l = 0; l < D; ++l) {
+      int prev = 0;
+      for (int p = 0; p < G::KP; ++p) {
+        mbar_wait(full(stage), phase);
+        const uint32_t pa = tile_a + p * ATOM, pb = ring + stage * G::STAGE_BYTES;
+        // a fence before every panel's group, as the barrier wait and the
+        // release are divergent code between groups
+        fence_acc(d);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < PANEL / 32; ++k)
+          mma(d, desc_sw128(pa + 32 * k), desc_sw128(pb + 32 * k), (p | k) != 0);
+        wgmma_commit();
+        if (p > 0) {
+          wgmma_wait<1>();                 // the previous panel's group is done
+          fence_acc(d);
+          if (t == 0) mbar_arrive(empty(prev));
+        }
+        prev = stage;
+        if (++stage == G::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (t == 0) mbar_arrive(empty(prev));
+      // every warp's products of the layer have read the A tile
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(WG) : "memory");
+      if (l + 1 == D) break;
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          store_pair(tile_a, warp, lane, j, h, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      // the generic stores, visible to the next layer's asynchronous reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(WG) : "memory");
+    }
+    if (t == 0) mbar_arrive(xempty(c));      // the A tile is free for the next input
+    // the last layer's columns 0 .. 7: registers 0 .. 3
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row =
+          (long long)tile * tile_rows + c * ROWS + 16 * warp + lane / 4 + 8 * h;
+      if (row < P) {
+        const float2 v = make_float2(to_f32(requant(d[2 * h])), to_f32(requant(d[2 * h + 1])));
+        *reinterpret_cast<float2*>(out + row * N_OUT + 2 * (lane % 4)) = v;
+      }
+    }
   }
 }
 
+// ---- host side ------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A row-major (rows, cols) matrix of E-byte elements, read in boxes of
+// 128 bytes of columns by box_rows rows under the 128-byte swizzle.
 template <typename T>
-int launch(const void* x, const void* w, int P, int W, int D, float* out, void* stream) {
-  if (W < 16 || W % 16 != 0 || D < 1 || P < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * tile_bytes<T>(W) +
-                      (size_t)NWARPS * 256 * sizeof(typename Traits<T>::acc);
-  cudaError_t e = cudaFuncSetAttribute(mlp_stack_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+bool tensor_map(CUtensorMap* m, const void* ptr, long long rows, int cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(PANEL / sizeof(T)), (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapDataType dt =
+      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return fn(m, dt, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <typename T, int W>
+int launch(const void* x, const void* w, int P, int D, float* out, cudaStream_t stream) {
+  typedef Geo<T, W> G;
+  if (D < 1 || P < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(mlp_stack_kernel<T, W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e != cudaSuccess || P == 0) return (int)e;
+  CUtensorMap xmap, wmap;
+  if (!tensor_map<T>(&xmap, x, P, W, ROWS) || !tensor_map<T>(&wmap, w, (long long)D * W, W, W))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  if (P == 0) return 0;
-  const int grid = (P + TP - 1) / TP;
-  mlp_stack_kernel<T><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w, P, W, D, out);
+  const int tiles = (P + ROWS * G::NCW - 1) / (ROWS * G::NCW);
+  mlp_stack_kernel<T, W><<<tiles < sms ? tiles : sms, G::THREADS, G::SMEM, stream>>>(
+      xmap, wmap, P, D, out);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int W>
+int occupancy(int* blocks_per_sm, int* smem_bytes) {
+  typedef Geo<T, W> G;
+  *smem_bytes = G::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(mlp_stack_kernel<T, W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, mlp_stack_kernel<T, W>,
+                                                      G::THREADS, G::SMEM);
+  return (int)e;
+}
+
+template <typename T>
+int dispatch(const void* x, const void* w, int P, int W, int D, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (W) {
+    case 64: return launch<T, 64>(x, w, P, D, out, st);
+    case 128: return launch<T, 128>(x, w, P, D, out, st);
+    case 192: return launch<T, 192>(x, w, P, D, out, st);
+    case 256: return launch<T, 256>(x, w, P, D, out, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// x (P, W) and w (D, W, W) row-major, 16-byte aligned; W in {64, 128,
+// 192, 256} (the wrapper checks it too).
 extern "C" int dfn_mlp_stack_bf16(const void* x, const void* w, int P, int W, int D,
                                   float* out, void* stream) {
-  return launch<__nv_bfloat16>(x, w, P, W, D, out, stream);
+  return dispatch<bf16>(x, w, P, W, D, out, stream);
 }
 
 extern "C" int dfn_mlp_stack_int8(const void* x, const void* w, int P, int W, int D,
                                   float* out, void* stream) {
-  return launch<signed char>(x, w, P, W, D, out, stream);
+  return dispatch<int8_t>(x, w, P, W, D, out, stream);
+}
+
+// Blocks of the kernel of a type (int8 != 0) and width that an SM holds,
+// and its shared memory a block (bytes).
+extern "C" int dfn_mlp_stack_occupancy(int int8, int W, int* blocks_per_sm, int* smem_bytes) {
+  switch (W * 2 + (int8 != 0)) {
+    case 128: return occupancy<bf16, 64>(blocks_per_sm, smem_bytes);
+    case 256: return occupancy<bf16, 128>(blocks_per_sm, smem_bytes);
+    case 384: return occupancy<bf16, 192>(blocks_per_sm, smem_bytes);
+    case 512: return occupancy<bf16, 256>(blocks_per_sm, smem_bytes);
+    case 129: return occupancy<int8_t, 64>(blocks_per_sm, smem_bytes);
+    case 257: return occupancy<int8_t, 128>(blocks_per_sm, smem_bytes);
+    case 385: return occupancy<int8_t, 192>(blocks_per_sm, smem_bytes);
+    case 513: return occupancy<int8_t, 256>(blocks_per_sm, smem_bytes);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -80,8 +80,10 @@ __device__ inline void load8(const float* p, float* v) {
 }
 
 // The tile's x0 = [xyz | sin, cos of each frequency times xyz | zero
-// pad], as nerf_mlp.cuh::build_pe, with one sincosf a (point, frequency,
-// axis): full range reduction, float32 arguments (they reach ~1e3 rad).
+// pad] (the reference embedder's order), with one sincosf a (point,
+// frequency, axis): full range reduction, float32 arguments (they reach
+// ~1e3 rad). Needs t.ray / t.rz filled and a __syncthreads() before the
+// call.
 __device__ inline void build_pe_sincos(const Dims& dm, const Tile& t, const float* ro,
                                        const float* rd, const float* freqs) {
   for (int r = threadIdx.x; r < dm.TP; r += blockDim.x) {

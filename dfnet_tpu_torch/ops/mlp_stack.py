@@ -10,22 +10,25 @@ the last layer, (P, 8) float32.
   mlp_stack_bf16: h <- bf16(relu(h . W^T)), products summed in float32;
   mlp_stack_int8: h <- clip((h . W^T) >> 7, 0, 127), summed in int32.
 
-Each wrapper launches csrc/mlp_stack.cu for CUDA tensors and counts the
-launch in nerf_kernels.LAUNCHES; for CPU tensors it runs the plain version
-beside it. The plain int8 version sums in float32, which is exact while
-every partial sum stays below 2^24 (weights within [-24, 24] at W=256:
-127 x 24 x 256 = 780,288), so it must equal the kernel bit for bit.
+Each wrapper launches csrc/mlp_stack.cu (warpgroup MMA over TMA-fed
+shared memory) for CUDA tensors and counts the launch in
+nerf_kernels.LAUNCHES; for CPU tensors it runs the plain version beside
+it. The kernel is built for the widths in WIDTHS; any other W raises. The
+plain int8 version sums in float32, which is exact while every partial
+sum stays below 2^24 (weights within [-24, 24] at W=256: 127 x 24 x 256 =
+780,288), so it must equal the kernel bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
 from dfnet_tpu_torch.ops import nerf_kernels as nk
 
 N_OUT = 8       # features written per point
+WIDTHS = (64, 128, 192, 256)   # the widths csrc/mlp_stack.cu is built for
 # The bf16 stack against its plain version. Both round the same float32 sums
 # to bf16 after every layer, so they differ only where the order of a sum
 # moves it across a bf16 rounding midpoint, and downstream of such a flip.
@@ -70,6 +73,42 @@ def mlp_stack_int8_plain(x: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     return h[:, :N_OUT].contiguous()
 
 
+# csrc/mlp_stack.cu's shared memory (Geo), mirrored so that the GPU test can
+# hold the C occupancy entry to it and the CPU test can bound the tiles
+_ROWS, _PANEL, _ALIGN, _BAR_BYTES, _MAX_STAGES = 64, 128, 1024, 256, 8
+_SMEM_LIMIT = 232448            # dynamic shared bytes a block may ask for
+
+
+def _esize(dtype: str) -> int:
+    return {"bf16": 2, "int8": 1}[dtype]
+
+
+def a_tile_bytes(dtype: str, W: int) -> int:
+    """Bytes of one consumer warpgroup's activation tile: 64 rows in
+    128-byte panels, K padded up to a whole panel."""
+    return -(-W * _esize(dtype) // _PANEL) * _ROWS * _PANEL
+
+
+def mlp_stack_geometry(dtype: str, W: int) -> dict:
+    """The kernel's block at a type and width: consumer warpgroups (ncw;
+    64 rows each, so 64 ncw rows a tile), weight-ring stages and shared
+    bytes a block."""
+    ncw = 4 if W <= 128 else 2
+    a = a_tile_bytes(dtype, W)
+    stage = W * _PANEL
+    stages = min(_MAX_STAGES, (_SMEM_LIMIT - _ALIGN - _BAR_BYTES - ncw * a) // stage)
+    return dict(ncw=ncw, rows=_ROWS * ncw, stages=stages,
+                smem_bytes=_ALIGN + ncw * a + stages * stage + _BAR_BYTES)
+
+
+def mlp_stack_occupancy(dtype: str, W: int) -> Tuple[int, int]:
+    """(blocks an SM, shared memory bytes a block) of the kernel of a type
+    and width, from the CUDA occupancy calculator."""
+    if W not in WIDTHS:
+        raise ValueError(f"mlp_stack takes W in {WIDTHS}, got {W}")
+    return nk._occupancy("mlp_stack", int(dtype == "int8"), W)
+
+
 def _launch(name: str, x: torch.Tensor, ws: torch.Tensor, dtype) -> torch.Tensor:
     from dfnet_tpu_torch.ops import build
 
@@ -77,16 +116,17 @@ def _launch(name: str, x: torch.Tensor, ws: torch.Tensor, dtype) -> torch.Tensor
         raise ValueError(f"{name}: want x (P, W) and ws (D, W, W)")
     P, W = x.shape
     D = ws.shape[0]
-    if W < 16 or W % 16 or D < 1 or P >= 2 ** 31:
-        raise ValueError(f"{name}: needs W a multiple of 16 and D >= 1: P={P} W={W} D={D}")
+    if W not in WIDTHS or D < 1 or P >= 2 ** 31:
+        raise ValueError(f"{name} takes W in {WIDTHS} and D >= 1: P={P} W={W} D={D}")
     nk._check("x", x, (P, W), dtype, x.device)
     nk._check("ws", ws, (D, W, W), dtype, x.device)
-    # the kernel takes each weight k-blocked, (W, W) -> (W/16, W, 16), so
-    # that every WMMA fragment starts 256-bit aligned (csrc/mlp_stack.cu)
-    blocked = ws.reshape(D, W, W // 16, 16).permute(0, 2, 1, 3).contiguous()
+    if x.data_ptr() % 16 or ws.data_ptr() % 16:
+        raise ValueError(f"{name}: TMA reads x and ws from 16-byte aligned addresses")
     out = torch.empty((P, N_OUT), device=x.device, dtype=torch.float32)
-    rc = build.load("mlp_stack", f"dfn_{name}")(x.data_ptr(), blocked.data_ptr(), P, W,
-                                                D, out.data_ptr(), nk._stream(out))
+    if P == 0:
+        return out
+    rc = build.load("mlp_stack", f"dfn_{name}")(x.data_ptr(), ws.data_ptr(), P, W, D,
+                                                out.data_ptr(), nk._stream(out))
     nk._raise_on(rc, name)
     nk.LAUNCHES[name] += 1
     return out

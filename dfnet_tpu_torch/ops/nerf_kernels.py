@@ -636,10 +636,18 @@ def proposal_z_plain(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
     """Plain version of proposal_z_rows: the sigma sweep at S uniform z,
     softplus, composite weights (1e2 terminal delta) and the blended-CDF
     draw of render/fast.py::sample_pdf_blend -> (N, S_f) sorted z."""
+    sigma = Fn.softplus(coarse_sigma_plain(packed, rays_o, rays_d, spec, S, near, far))
+    return proposal_z_from_sigma(sigma, S_f, near, far, lam)
+
+
+def proposal_z_from_sigma(sigma: torch.Tensor, S_f: int, near: float, far: float,
+                          lam: float) -> torch.Tensor:
+    """proposal_z_plain after the sweep: (N, S) softplus(sigma) at the S
+    uniform z -> (N, S_f) sorted z."""
     from dfnet_tpu_torch.render.fast import _shifted_cumprod_lanes, sample_pdf_blend
 
-    sigma = Fn.softplus(coarse_sigma_plain(packed, rays_o, rays_d, spec, S, near, far))
-    z = _uniform_z(S, near, far, False, rays_o.device).expand(rays_o.shape[0], S)
+    N, S = sigma.shape
+    z = _uniform_z(S, near, far, False, sigma.device).expand(N, S)
     deltas = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e2)], -1)
     alphas = 1.0 - torch.exp(-deltas * sigma)
     weights = alphas * _shifted_cumprod_lanes(alphas)
@@ -815,18 +823,20 @@ def sweep_smem_bytes(W: int, F: int) -> int:
     return sum(_align128(p) for p in parts)
 
 
+def _block_rows(R: int, S: int) -> int:
+    """Rows of the 64-row sub-tiles that R rays of S samples fill."""
+    return -(-R * S // SWEEP_TILE) * SWEEP_TILE
+
+
 def fine_composite_geometry(S: int) -> Tuple[int, int]:
     """(R, sub-tiles) of fine_composite_t at S samples a ray: a block owns R
     whole rays and runs their R*S points through ceil(R*S/64) sub-tiles of
     64 rows. R keeps R*S <= COMP_MAX_POINTS (R = 1 where S is larger), so
     that the composite buffer beside the panels leaves two blocks an SM at
     W <= 128; among those R, the fewest tile rows a ray, then the least R."""
-    def rows(R):
-        return -(-R * S // SWEEP_TILE) * SWEEP_TILE
-
     R = min(range(1, max(1, COMP_MAX_POINTS // S) + 1),
-            key=lambda r: (Fraction(rows(r), r), r))
-    return R, rows(R) // SWEEP_TILE
+            key=lambda r: (Fraction(_block_rows(r, S), r), r))
+    return R, _block_rows(R, S) // SWEEP_TILE
 
 
 def fine_composite_smem_bytes(W: int, F: int, S: int) -> int:
@@ -867,6 +877,32 @@ def fine_composite_t(packed: Dict, rays_o, rays_d, z_all, dpt,
     return out
 
 
+def proposal_z_geometry(S: int) -> Tuple[int, int]:
+    """(R, sub-tiles) of proposal_z_rows at S samples a ray: a block owns R
+    whole rays and runs their R*S points through ceil(R*S/64) sub-tiles of
+    64 rows. Among the R with R*S <= COMP_MAX_POINTS (R = 1 where S is
+    larger), the fewest tile rows a ray, then the MOST rays: a block's
+    fixed cost (the head's staging, the scans' barriers) is then shared by
+    more rays (at S=64, R=4 took 13-15% off R=1 on the card; PERF.md)."""
+    R = min(range(1, max(1, COMP_MAX_POINTS // S) + 1),
+            key=lambda r: (Fraction(_block_rows(r, S), r), -r))
+    return R, _block_rows(R, S) // SWEEP_TILE
+
+
+def proposal_z_smem_bytes(W: int, F: int, S: int) -> int:
+    """Shared bytes a block of proposal_z_rows: the sweep's, then one float
+    (softplus sigma, then the CDF edge) of each of the block's R*S points."""
+    R, _ = proposal_z_geometry(S)
+    return sweep_smem_bytes(W, F) + _align128(R * S * 4)
+
+
+def proposal_z_occupancy(W: int, F: int, S: int) -> Tuple[int, int, int]:
+    """(blocks an SM, shared memory bytes a block, R rays a block) of the
+    proposal_z_rows kernel at width W and S samples a ray."""
+    R, _ = proposal_z_geometry(S)
+    return (*_occupancy("proposal_z", W, F, S, R), R)
+
+
 def proposal_z_rows(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
                     S_f: int, near: float, far: float, lam: float) -> torch.Tensor:
     """The mono path's sampler: the sigma-only (proposal) sweep at S
@@ -879,19 +915,22 @@ def proposal_z_rows(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
 
     if spec.fine or spec.static:
         raise ValueError("proposal_z_rows takes a sigma-only pack")
+    _check_width("proposal_z_rows", spec)
     N = rays_o.shape[0]
     if S < 3 or S_f < 2 or N * S_f >= 2 ** 31:
         raise ValueError(f"bad sampler size N={N} S={S} S_f={S_f}")
     _check_common(packed, spec, rays_o, rays_d, S)
+    _check_aligned16("proposal_z_rows", packed["b"])
     out = torch.empty((N, S_f), device=rays_o.device, dtype=torch.float32)
     if N == 0:
         return out
+    R, _ = proposal_z_geometry(S)
     rc = build.load("proposal_z")(
         rays_o.data_ptr(), rays_d.data_ptr(), N, S, S_f, float(near), float(far),
         float(np.float32(1.0 / (S - 1))), float(np.float32(1.0 / (S_f - 1))),
         float(np.float32((far - near) / (S - 1))), float(lam),
         packed["w"].data_ptr(), packed["b"].data_ptr(), packed["freqs"].data_ptr(),
-        spec.D, spec.W, spec.skip, spec.F, out.data_ptr(), _stream(out))
+        spec.D, spec.W, spec.skip, spec.F, R, out.data_ptr(), _stream(out))
     _raise_on(rc, "proposal_z_rows")
     LAUNCHES["proposal_z_rows"] += 1
     return out

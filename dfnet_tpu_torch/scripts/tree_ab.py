@@ -9,15 +9,19 @@ of the parent commit unpacked into a gitignored directory such as proof/).
 
 kernels: builds TREE's SOURCES with ops/build.py's nvcc flags into
 build/tree_ab/ (the C entry points must be this tree's, but for a
-dfn_fine_composite from before the wrapper chose R: a shim drops R), and
-this tree's through ops/build.py. At each of SHAPES (random nets from a
-seed: the shipped fine net D=8 skip 4, F=10, at sorted uniform z; the
-proposal D=2 W=64 F=4 and the coarse net D=8 W=128 F=10 for
-coarse_sigma_t) it calls this tree's wrapper with each tree's library in
-turn (parent, this, this, parent; each reading a CUDA-event median of
---reps calls) and prints one JSON line a shape and kernel: each tree's
-median of its two readings, the readings, whether the two trees' outputs
-are bit-equal, and each tree's largest error against the plain version.
+dfn_fine_composite or dfn_proposal_z from before the wrapper chose R: a
+shim drops R; and for an mlp_stack that took k-blocked weights: a shim
+passes a k-blocked copy), and this tree's through ops/build.py. At each
+of SHAPES (random nets from a seed: the shipped fine net D=8 skip 4,
+F=10, at sorted uniform z; the proposal D=2 W=64 F=4 and the coarse net
+D=8 W=128 F=10 for coarse_sigma_t, the proposal net for proposal_z_rows
+at the mono path's S=64, S_f=128; the probe's stacks at 2^21 points, D=6,
+bf16 on the probe's data, int8 on weights that keep it non-zero) it calls
+this tree's wrapper with each tree's library in turn (parent, this, this,
+parent; each reading a CUDA-event median of --reps calls) and prints one
+JSON line a shape and kernel: each tree's median of its two readings, the
+readings, whether the two trees' outputs are bit-equal, and each tree's
+largest error against the plain version.
 
 step: runs chip_smoke.py's phase_train (20 epochs of the shipped config
 through the CLI, then step_breakdown) from each tree's root in its own
@@ -43,12 +47,15 @@ import torch
 from dfnet_tpu_torch.models.embedder import get_embedder
 from dfnet_tpu_torch.models.nerfw import NeRFWConfig, init_nerfw_params, init_sigma_mlp
 from dfnet_tpu_torch.ops import build
+from dfnet_tpu_torch.ops import mlp_stack as ms
 from dfnet_tpu_torch.ops import nerf_kernels as nk
+from dfnet_tpu_torch.scripts import bench_int8_wide as probe
 from dfnet_tpu_torch.utils.timing import cuda_ms
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT = build.BUILD_ROOT.parent / "tree_ab"
-SOURCES = ("fine_raw", "raw_bwd", "fine_composite", "coarse_sigma")
+SOURCES = ("fine_raw", "raw_bwd", "fine_composite", "coarse_sigma", "proposal_z", "mlp_stack")
+ENTRY = {"raw_bwd": "dfn_raw_bwd_stash", "mlp_stack": "dfn_mlp_stack_bf16"}   # any one entry
 # (name, W, static, rays, samples): render chunks and one train step's sweeps
 # (fine_raw_t; raw_bwd_t on the train shapes), the culled and mono
 # composites (fine_composite_t), and the placement sweeps (coarse_sigma_t,
@@ -60,7 +67,11 @@ SHAPES = [("render", 128, False, 16384, 128), ("render", 256, False, 16384, 128)
           ("composite-mono", 128, False, 16384, 128),
           ("composite-culled", 256, False, 16384, 24),
           ("composite-mono", 256, False, 16384, 128),
-          ("sigma-proposal", 64, False, 16384, 64), ("sigma-coarse-net", 128, False, 16384, 64)]
+          ("sigma-proposal", 64, False, 16384, 64), ("sigma-coarse-net", 128, False, 16384, 64),
+          ("sampler-mono", 64, False, 16384, 64),
+          ("stack-bf16", 256, False, 1 << 21, 6), ("stack-int8", 256, False, 1 << 21, 6),
+          ("stack-bf16", 128, False, 1 << 21, 6), ("stack-int8", 128, False, 1 << 21, 6)]
+SAMPLER_S_F = 128            # proposal_z_rows' fine samples a ray on the mono path
 NEAR, FAR = 2.0, 6.0
 RESULT = "tree_ab result: "
 
@@ -72,18 +83,39 @@ def card() -> str:
 
 
 class _DropR:
-    """TREE's fine_composite library when its dfn_fine_composite chose R
-    itself (no R argument): the wrapper's call with R, R dropped."""
+    """TREE's library when its `entry` chose R itself (no R argument, which
+    this tree's wrapper passes at index `at`): the wrapper's call, R
+    dropped."""
 
-    def __init__(self, lib, argtypes):
-        self._lib, self._argtypes = lib, argtypes
+    def __init__(self, lib, entry, at, argtypes):
+        self._lib, self._entry, self._at, self._argtypes = lib, entry, at, argtypes
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
-        if name != "dfn_fine_composite":
+        if name != self._entry:
             return fn
         fn.argtypes, fn.restype = self._argtypes, ctypes.c_int
-        return lambda *a: fn(*a[:13], *a[14:])
+        return lambda *a: fn(*a[:self._at], *a[self._at + 1:])
+
+
+class _KBlocked:
+    """TREE's mlp_stack library when its kernels took each weight k-blocked,
+    (D, W, W) -> (D, W/16, W, 16): the wrapper's call, its weight pointer
+    swapped for a k-blocked copy made beforehand by `block(ws)`."""
+
+    def __init__(self, lib):
+        self._lib, self._copies = lib, {}
+
+    def block(self, ws: torch.Tensor):
+        D, W, _ = ws.shape
+        self._copies[ws.data_ptr()] = ws.reshape(D, W, W // 16, 16).permute(0, 2, 1, 3).contiguous()
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if not name.startswith("dfn_mlp_stack_"):
+            return fn
+        fn.argtypes, fn.restype = build.SIGNATURES[name], ctypes.c_int
+        return lambda x, w, *a: fn(x, self._copies[w].data_ptr(), *a)
 
 
 def tree_signatures(tree: Path) -> dict:
@@ -111,9 +143,13 @@ def build_parent(tree: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {tree}'s {n}.cu:\n{text}")
         libs[n] = ctypes.CDLL(str(lib))
-    sig = tree_signatures(tree)["dfn_fine_composite"]
-    if len(sig) == len(build.SIGNATURES["dfn_fine_composite"]) - 1:
-        libs["fine_composite"] = _DropR(libs["fine_composite"], sig)
+    sigs = tree_signatures(tree)
+    for n, at in (("fine_composite", 13), ("proposal_z", 18)):
+        sig = sigs[f"dfn_{n}"]
+        if len(sig) == len(build.SIGNATURES[f"dfn_{n}"]) - 1:
+            libs[n] = _DropR(libs[n], f"dfn_{n}", at, sig)
+    if "kblocked(" in (tree / "dfnet_tpu_torch" / "ops" / "csrc" / "mlp_stack.cu").read_text():
+        libs["mlp_stack"] = _KBlocked(libs["mlp_stack"])
     return libs
 
 
@@ -151,11 +187,26 @@ def sigma_inputs(shape: str, N: int, S: int, device, seed: int = 0):
     return (packed, t(ro), t(rd), nk.spec_of(cfg, emb, fine=False), S, NEAR, FAR, False)
 
 
-def calls_at(shape: str, W: int, static: bool, N: int, S: int, device) -> dict:
-    """{kernel: (call, plain output)} of one shape."""
+def calls_at(shape: str, W: int, static: bool, N: int, S: int, device, parent) -> dict:
+    """{kernel: (call, plain output)} of one shape (for the stacks, N is
+    the point count and S the depth)."""
+    if shape.startswith("stack"):
+        dtype = shape.split("-")[1]
+        x, ws = ms.probe_inputs(dtype, W, N, S, device)
+        if dtype == "int8":               # the probe's int8 weights zero every output
+            ws = probe.alive_int8_weights(ws.shape, device)
+        if isinstance(parent.get("mlp_stack"), _KBlocked):
+            parent["mlp_stack"].block(ws)
+        kern = ms.mlp_stack_bf16 if dtype == "bf16" else ms.mlp_stack_int8
+        plain = ms.mlp_stack_bf16_plain if dtype == "bf16" else ms.mlp_stack_int8_plain
+        return {f"mlp_stack_{dtype}": (lambda: kern(x, ws), plain(x, ws))}
     if shape.startswith("sigma"):
         a = sigma_inputs(shape, N, S, device)
         return {"coarse_sigma_t": (lambda: nk.coarse_sigma_t(*a), nk.coarse_sigma_plain(*a))}
+    if shape.startswith("sampler"):
+        a = sigma_inputs("sigma-proposal", N, S, device)
+        a = (*a[:5], SAMPLER_S_F, NEAR, FAR, S / SAMPLER_S_F)
+        return {"proposal_z_rows": (lambda: nk.proposal_z_rows(*a), nk.proposal_z_plain(*a))}
     sweep, g = inputs(W, static, N, S, device)
     if shape.startswith("composite"):
         return {"fine_composite_t": (lambda: nk.fine_composite_t(*sweep),
@@ -181,7 +232,7 @@ def run_kernels(parent: Path, reps: int) -> int:
     theirs = build_parent(parent)
     build.build_all(list(SOURCES))
     for n in SOURCES:
-        build.load(n, "dfn_raw_bwd_stash" if n == "raw_bwd" else "")
+        build.load(n, ENTRY.get(n, ""))
     ours = {n: build._loaded[n] for n in SOURCES}
 
     def use(libs):
@@ -192,7 +243,7 @@ def run_kernels(parent: Path, reps: int) -> int:
     trees = {"parent": theirs, "this": ours}
     for shape, W, static, N, S in SHAPES:
         with torch.no_grad():
-            calls = calls_at(shape, W, static, N, S, device)
+            calls = calls_at(shape, W, static, N, S, device, theirs)
         for name, (fn, want) in calls.items():
             outs, ms = {}, {t: [] for t in trees}
             with torch.no_grad():

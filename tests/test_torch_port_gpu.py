@@ -29,7 +29,7 @@ from dfnet_tpu_torch.models.embedder import get_embedder
 from dfnet_tpu_torch.models.nerfw import NeRFWConfig, init_nerfw_params, init_sigma_mlp
 from dfnet_tpu_torch.ops import mlp_stack as ms
 from dfnet_tpu_torch.ops import nerf_kernels as nk
-from dfnet_tpu_torch.ops.tolerances import FLIP_CAP, FLIP_SHARE, TOL_COMP, TOL_RAW
+from dfnet_tpu_torch.ops.tolerances import FLIP_CAP, FLIP_SHARE, TOL_COMP, TOL_RAW, TOL_Z
 from dfnet_tpu_torch.scripts import bench_int8_wide as probe
 
 NEAR, FAR = 0.5, 3.5
@@ -440,51 +440,117 @@ def test_raw_bwd_stash_matches_plain(cuda, D, W, skip, S, static):
         torch.testing.assert_close(k[name], w, rtol=2e-2, atol=1e-3 * scale, msg=name)
 
 
+def _proposal_inputs(W, F, N, device, seed):
+    cfg = NeRFWConfig(D=2, W=W, skips=(), in_xyz=6 * F + 3)
+    params = init_sigma_mlp(torch.Generator().manual_seed(seed), cfg, device)
+    emb = get_embedder(F)
+    ro, rd = _rays(N, seed=seed + 3, device=device)
+    return nk.pack_coarse_t(params, cfg, emb), nk.spec_of(cfg, emb, fine=False), ro, rd
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("N", [37, 0])
 @pytest.mark.parametrize("W,F,S,S_f", [
     (64, 4, 64, 128),                # the proposal net at the mono path's shape
-    (128, 4, 32, 96),                # a wide proposal, two rays a block
+    (128, 4, 32, 96),                # a wide proposal, several rays a block
+    (64, 4, 48, 128),                # rays a block that cross sub-tiles
+    (64, 4, 96, 160),                # two rays over three sub-tiles
 ])
-def test_proposal_z_kernel_matches_plain(cuda, W, F, S, S_f):
-    cfg = NeRFWConfig(D=2, W=W, skips=(), in_xyz=6 * F + 3)
-    params = init_sigma_mlp(torch.Generator().manual_seed(W), cfg, cuda)
-    emb = get_embedder(F)
-    packed = nk.pack_coarse_t(params, cfg, emb)
-    spec = nk.spec_of(cfg, emb, fine=False)
-    ro, rd = _rays(37, seed=W + 3, device=cuda)              # ragged against every tile
+def test_proposal_z_kernel_matches_plain(cuda, W, F, S, S_f, N):
+    """proposal_z_rows at 37 rays (a ragged last block at every R) and at
+    none: within TOL_Z of proposal_z_plain, every row sorted and inside
+    [near, far]; one launch counted where there are rays; a second call
+    gives the same bits."""
+    packed, spec, ro, rd = _proposal_inputs(W, F, N, cuda, W + S)
     args = (packed, ro, rd, spec, S, S_f, NEAR, FAR, S / S_f)
     nk.reset_launches()
     got = nk.proposal_z_rows(*args)
     torch.cuda.synchronize()
-    assert nk.LAUNCHES["proposal_z_rows"] == 1
+    assert nk.LAUNCHES["proposal_z_rows"] == (1 if N else 0)
+    assert got.shape == (N, S_f) and torch.isfinite(got).all()
+    if N == 0:
+        return
     want = nk.proposal_z_plain(*args)
-    assert got.shape == (37, S_f) and torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+    torch.testing.assert_close(got, want, atol=TOL_Z, rtol=0)
     assert (got[:, 1:] >= got[:, :-1]).all()
     assert (got >= NEAR).all() and (got <= FAR).all()
+    assert torch.equal(got, nk.proposal_z_rows(*args))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", [128, 256])
-def test_mlp_stack_kernels_match_plain(cuda, W):
-    # ragged against 64-point tiles
-    P, D = 1000, 2
+def test_proposal_z_kernel_occupancy_and_width_limit(cuda):
+    """Three blocks an SM at W <= 64 (the proposal net), two at W <= 128,
+    one at W = 256, as coarse_sigma_t; the shared bytes and the rays a
+    block are those the CPU-side geometry implies; a wider net raises."""
+    for S in (32, 48, 64, 96):
+        for W, blocks in ((64, 3), (128, 2), (256, 1)):
+            got, smem, R = nk.proposal_z_occupancy(W, 4, S)
+            assert got == blocks, (W, S, got)
+            assert smem == nk.proposal_z_smem_bytes(W, 4, S)
+            assert R == nk.proposal_z_geometry(S)[0]
+    packed, spec, ro, rd = _proposal_inputs(64, 4, 4, cuda, 0)
+    wide = nk.KernelSpec(D=2, W=288, skip=-1, F=4, fine=False)
+    with pytest.raises(ValueError, match="W <= 256"):
+        nk.proposal_z_rows(packed, ro, rd, wide, 64, 128, NEAR, FAR, 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 2, 6])
+@pytest.mark.parametrize("W", ms.WIDTHS)
+def test_mlp_stack_kernels_match_plain(cuda, W, D):
+    """Both stacks at every width the kernel is built for, at P = 1000 (a
+    ragged last tile), one full tile of rows + 1 and 1. int8 equals its
+    plain version on the probe's weights (every output zero past the first
+    layers) and on weights that keep the stack alive. bf16 passes
+    bf16_stack_agreement at P = 1000, and each smaller P gives the bits of
+    the same rows of the P = 1000 call (a row's sums do not depend on the
+    other rows). The agreement rule caps the share of outputs that differ
+    at 1%, a share that only many rows make steady: a bf16 flip in an early
+    layer moves several of a row's 8 outputs, so one or two such rows in
+    129 (about 0.4% of outputs differ at D = 6 over 2^21 points) can pass
+    1% by chance, and at P = 1 one flip is 12.5%. One launch counted a
+    call."""
     assert not torch.backends.cuda.matmul.allow_tf32
+    rows = ms.mlp_stack_geometry("bf16", W)["rows"]
+    sizes = (rows + 1, 1)
     nk.reset_launches()
-    x, ws = ms.probe_inputs("bf16", W, P, 6, cuda)
-    for d in (D, 6):
-        got = ms.mlp_stack_bf16(x, ws[:d])
+    x, ws = ms.probe_inputs("bf16", W, 1000, D, cuda)
+    full = ms.mlp_stack_bf16(x, ws)
+    torch.cuda.synchronize()
+    assert full.shape == (1000, ms.N_OUT)
+    agree = ms.bf16_stack_agreement(full, ms.mlp_stack_bf16_plain(x, ws))
+    assert agree["ok"], agree
+    for P in sizes:
+        got = ms.mlp_stack_bf16(x[:P], ws)
         torch.cuda.synchronize()
-        agree = ms.bf16_stack_agreement(got, ms.mlp_stack_bf16_plain(x, ws[:d]))
-        assert agree["ok"], (d, agree)
-    # int8 on the probe's weights (every output zero) and on weights that
-    # keep the stack alive, at D=2 and D=6
-    x, ws = ms.probe_inputs("int8", W, P, 6, cuda)
+        assert torch.equal(got, full[:P]), P
+    x, ws = ms.probe_inputs("int8", W, 1000, D, cuda)
     alive = probe.alive_int8_weights(ws.shape, cuda)
     for w in (ws, alive):
-        for d in (D, 6):
-            got = ms.mlp_stack_int8(x, w[:d])
+        for P in (1000, *sizes):
+            got = ms.mlp_stack_int8(x[:P], w)
             torch.cuda.synchronize()
-            assert torch.equal(got, ms.mlp_stack_int8_plain(x, w[:d]))
-        assert (got > 0).any() == (w is alive)
-    assert nk.LAUNCHES["mlp_stack_bf16"] == 2 and nk.LAUNCHES["mlp_stack_int8"] == 4
+            assert torch.equal(got, ms.mlp_stack_int8_plain(x[:P], w)), (P, w is alive)
+            if P == 1000 and w is alive:
+                assert (got > 0).any()
+    assert nk.LAUNCHES["mlp_stack_bf16"] == 3 and nk.LAUNCHES["mlp_stack_int8"] == 6
+
+
+@pytest.mark.gpu
+def test_mlp_stack_kernel_occupancy_and_widths(cuda):
+    """One block an SM at every width, with the shared bytes of the
+    CPU-side geometry; no launch for P = 0; a width the kernel is not built
+    for raises ValueError naming the widths."""
+    for dtype in ("bf16", "int8"):
+        for W in ms.WIDTHS:
+            blocks, smem = ms.mlp_stack_occupancy(dtype, W)
+            assert blocks == 1, (dtype, W, blocks)
+            assert smem == ms.mlp_stack_geometry(dtype, W)["smem_bytes"]
+    nk.reset_launches()
+    x, ws = ms.probe_inputs("bf16", 128, 0, 2, cuda)
+    assert ms.mlp_stack_bf16(x, ws).shape == (0, ms.N_OUT)
+    assert nk.LAUNCHES["mlp_stack_bf16"] == 0
+    for W in (96, 320):
+        x, ws = ms.probe_inputs("int8", W, 8, 2, cuda)
+        with pytest.raises(ValueError, match="W in"):
+            ms.mlp_stack_int8(x, ws)
