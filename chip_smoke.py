@@ -72,7 +72,22 @@ Phases (any failure exits non-zero):
                fine_raw_t and raw_bwd_t twice each, the loss must be finite
                and fall, and the final val PSNR must be within
                TRAIN_PSNR_TOL_DB of the JAX package's run (JAX_TRAIN_VAL_PSNR).
-               Prints train steps/s and where a step's time goes.
+               Prints train steps/s and where a step's time goes;
+  9. feature — stage 2: the port's stage-2 CLI at the shipped stage-2 config
+               (configs/config_dfnet.txt: DFNet at full width, triplet, batch
+               4, RVS, tinyimg, bf16) on a 240x320 synthetic scene of 200
+               train and 100 val views, fed by FrozenNeRF on the trained
+               asset, epochs 0-3. The pre-render and the RVS refresh must
+               launch coarse_sigma_t and fine_raw_t (each also held against
+               its plain version at a pre-render's shapes), every epoch's
+               losses be finite, the best checkpoint reload with the same val
+               MSE, and a median error print at epochs 0 and 3; DFNet float32
+               on the card must match the CPU under the golden stage-2 step's
+               bars (on that test's leaves) and bf16 track float32 under the
+               bf16 bars (dfnet_tpu_torch/training/parity.py). Prints the pre-render's
+               s, rays/s and launches, the RVS refresh s, the step's
+               breakdown by CUDA events with its conv FLOPs' share of the
+               bf16 peak, steps/s, validate s and the median errors.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.
 """
@@ -114,6 +129,12 @@ PROBE_POINTS = 1 << 21  # the layer-stack probe's default point count
 JAX_TRAIN_VAL_PSNR = 12.598
 TRAIN_PSNR_TOL_DB = 1.0
 TRAIN_EPOCHS = 20
+# phase_feature: configs/config_dfnet.txt's size (7-Scenes heads at df=2,
+# 240x320; trainskip 5 keeps 200 train views); val cut from 1,000 to 100
+FEATURE_TRAIN, FEATURE_VAL = 200, 100
+FEATURE_H, FEATURE_W, FEATURE_FOCAL = 240, 320, 300.0   # the 48x64 field x5
+FEATURE_EPOCHS = 3
+FEATURE_STEP_REPS = 20
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_INT8 = 1979e12         # H100 SXM dense int8 OP/s (data sheet)
 PEAK_F32 = 67e12            # H100 SXM float32 FLOP/s outside the tensor cores
@@ -1007,6 +1028,297 @@ def step_breakdown(tr, reps: int = 10):
     return out
 
 
+def dfnet_conv_flops(h: int, w: int, n_enc: int, n_feat: int,
+                     taps=("conv1_2", "conv3_3", "conv5_3")) -> int:
+    """Forward conv FLOPs of one DFNet call: the 13 VGG16 convs over n_enc
+    images of h x w, the adapt convs (1x1 to 64, 5x5 to 128) over n_feat."""
+    from dfnet_tpu_torch.models.vgg import VGG16_LAYOUT
+
+    flops, cin, at = 0, 3, {}
+    for e in VGG16_LAYOUT:
+        if e == "M":
+            h, w = h // 2, w // 2
+            continue
+        flops += 2 * h * w * cin * e[1] * 9 * n_enc
+        at[e[0]] = (h, w, e[1])
+        cin = e[1]
+    for name in taps:
+        th, tw, c = at[name]
+        flops += 2 * th * tw * n_feat * (c * 64 + 64 * 128 * 25)
+    return flops
+
+
+def feature_parity(device):
+    """DFNet on the card against the CPU at float32 (the golden step's
+    config and inputs, 4+4+4 images at 32x48, its bars on its leaves;
+    PyTorch's TF32 default on: the port must keep its float32 convs IEEE
+    itself), the float32 eval forward (predict) the same way, then bf16
+    against float32 on the card at the same images."""
+    import torch
+
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.training import parity
+    from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
+
+    sc = make_synthetic_scene(n_train=4, n_val=2, H=32, W=48, focal=45.0)
+    batch = parity.golden_batch()
+    with tempfile.TemporaryDirectory() as base:
+        def trainer(dev):
+            cfg = parse_args(parity.GOLDEN_FLAGS + ["--featurenet_batch_size", "4",
+                                                    "--basedir", base, "--device", str(dev)],
+                             stage="feature")
+            return FeatureTrainer(cfg, sc, None, gen=torch.Generator().manual_seed(0))
+
+        want = parity.loss_and_grads(trainer("cpu"), batch)
+        card = trainer(device)
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        x = torch.cat([batch[0], batch[1], batch[3]])
+        try:
+            got = parity.loss_and_grads(card, batch)
+            eval_pose = card.predict(x.to(device))
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        ok, info = parity.golden_agreement(*got, *want, leaves=parity.GOLDEN_LEAVES)
+        _, every = parity.golden_agreement(*got, *want)
+        worst = every["worst"]
+        log(f"[feature] float32 card against CPU: loss {got[0]:.6f} / {want[0]:.6f} "
+            f"(|d| {info['loss_err']:.3e}, bar {parity.LOSS_TOL}); relative grad errors "
+            f"of the golden leaves {json.dumps(info['grad_err'])}; of every leaf, the "
+            f"largest against its bar: {worst} {every['grad_err'][worst]:.3e}")
+        if not ok:
+            raise SystemExit(f"DFNet float32 on the card disagrees with the CPU: {info}")
+        ok, eval_err = parity.eval_agreement(eval_pose, trainer("cpu").predict(x))
+        log(f"[feature] float32 eval forward (predict) card against CPU: "
+            f"pose |d| {eval_err:.3e} (bar {parity.EVAL_POSE_TOL} of max(|pose|, 1))")
+        if not ok:
+            raise SystemExit(f"DFNet's float32 eval forward on the card disagrees with "
+                             f"the CPU: {eval_err}")
+        x = x.to(device)
+        ok, bf = parity.bf16_agreement(card.params, card.state, x)
+        log(f"[feature] bf16 against float32 on the card: {json.dumps(bf)}")
+        if not ok:
+            raise SystemExit(f"DFNet bf16 does not track float32 on the card: {bf}")
+    return {"float32_loss_err": info["loss_err"], "float32_grad_err": info["grad_err"],
+            "float32_every_leaf_worst": [worst, every["grad_err"][worst]],
+            "float32_eval_pose_err": eval_err, "bf16": bf}
+
+
+def feature_step_breakdown(tr, reps: int = FEATURE_STEP_REPS):
+    """One stage-2 step on its last batch of the run, by CUDA events: the
+    whole step (median of reps), and apart: the encoder forward (13 convs,
+    3B images), the adapt branches + upsample + stacking (2B images), the
+    losses on those features (the triplet case is read on the host), the
+    backward, and Adam. The forward parts run without autograd."""
+    import torch
+
+    from dfnet_tpu_torch.models import dfnet as dm
+    from dfnet_tpu_torch.models.vgg import imagenet_normalize, vgg16_features
+    from dfnet_tpu_torch.ops.resize import resize_bilinear_nchw
+    from dfnet_tpu_torch.training import feature_losses as fl
+    from dfnet_tpu_torch.utils.timing import cuda_ms
+
+    t, r, p12, rp, pp = tr.last_batch
+    cfg, mcfg, dt, lr = tr.cfg, tr.model_cfg, tr.compute_dtype, tr.scheduler.lr
+    nb, (H, W) = t.shape[0], t.shape[-2:]
+    out = {"step_ms": cuda_ms(lambda: tr.train_step(t, r, p12, rp, pp, lr), reps=reps)}
+    with torch.no_grad():
+        enc = {k: dm._cast(v, dt) for k, v in tr.params["encoder"].items()}
+        xn = imagenet_normalize(torch.cat([t, r, rp])).to(dt)
+        out["encoder_fwd_ms"] = cuda_ms(
+            lambda: vgg16_features(enc, xn, mcfg.hypercolumn_layers), reps=reps)
+        _, taps = vgg16_features(enc, xn, mcfg.hypercolumn_layers)
+
+        def adapt():
+            ups = [resize_bilinear_nchw(dm._adapt_level(
+                tr.params["adapt"][str(i)], tr.state["adapt"][str(i)], f[:2 * nb],
+                not cfg.freezeBN)[0].to(dt), H, W) for i, f in enumerate(taps)]
+            return torch.stack([u[:nb] for u in ups]), torch.stack([u[nb:] for u in ups])
+
+        out["adapt_upsample_ms"] = cuda_ms(adapt, reps=reps)
+        f_t, f_r = adapt()
+        _, pred, _ = dm.dfnet_forward(tr.params, tr.state, torch.cat([t, r, rp]), mcfg,
+                                      compute_dtype=dt)
+
+        def losses():
+            return (fl.pose_loss(pred[:2 * nb], torch.cat([p12, p12])),
+                    fl.triplet_loss_hard_negative_mining_plus(
+                        f_r, f_t, cfg.triplet_margin, tr.triplet_axis),
+                    fl.pose_loss(pred[2 * nb:], pp))
+
+        out["losses_ms"] = cuda_ms(losses, reps=reps)
+    times = []
+    for _ in range(reps):
+        loss, _ = tr.loss_fn(tr.params, tr.state, t, r, p12, rp, pp)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss.backward()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    out["backward_ms"] = float(np.median(times))
+    out["adam_ms"] = cuda_ms(lambda: tr.adam_update(lr), reps=reps)
+    out["rest_ms"] = out["step_ms"] - sum(out[k] for k in (
+        "encoder_fwd_ms", "adapt_upsample_ms", "losses_ms", "backward_ms", "adam_ms"))
+    flops = 3 * dfnet_conv_flops(H, W, 3 * nb, 2 * nb, mcfg.hypercolumn_layers)
+    out["conv_tflop_step"] = flops / 1e12
+    out["bf16_peak_share"] = flops / PEAK_BF16 / (out["step_ms"] / 1e3)
+    out["steps_per_s_events"] = 1e3 / out["step_ms"]
+    return out
+
+
+def phase_feature(device):
+    """Stage 2 through the port's CLI at the shipped stage-2 config
+    (configs/config_dfnet.txt: DFNet, triplet, batch 4, RVS, tinyimg, bf16)
+    on a 240x320 synthetic scene of FEATURE_TRAIN train and FEATURE_VAL val
+    views, fed by FrozenNeRF on the trained asset, epochs 0..FEATURE_EPOCHS.
+    Checks: the pre-render and the RVS refresh launch coarse_sigma_t and
+    fine_raw_t; each kernel against its plain version at a pre-render's
+    shapes; every epoch's losses finite; the best checkpoint reloads into a
+    fresh trainer with the same val MSE; a median error at epochs 0 and the
+    end; DFNet float32 card against CPU and bf16 against float32
+    (feature_parity). Figures: pre-render s, rays/s and launches, RVS s, the
+    step's breakdown and steps/s, validate s, median errors."""
+    import torch
+
+    from dfnet_tpu_torch.cli import feature as cli
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.training.checkpoints import load_pytree, save_pytree
+    from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
+
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(n_train=FEATURE_TRAIN, n_val=FEATURE_VAL, H=FEATURE_H,
+                                 W=FEATURE_W, focal=FEATURE_FOCAL, seed=0, device=device)
+    rec = {"scene_s": time.perf_counter() - t0, "epochs": [], "evals": [], "validate_s": []}
+    trainers = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        before, t = dict(nk.LAUNCHES), time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(seconds=time.perf_counter() - t,
+                         launches={k: nk.LAUNCHES[k] - before[k] for k in before})
+
+    class Timed(FeatureTrainer):
+        """The CLI's trainer, timing its parts and keeping its last batch."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            trainers.append(self)
+
+        def prerender_train_views(self):
+            out, rec["prerender"] = timed(lambda: FeatureTrainer.prerender_train_views(self))
+            return out
+
+        def rvs_refresh(self, rng):
+            out, rec["rvs"] = timed(lambda: FeatureTrainer.rvs_refresh(self, rng))
+            return out
+
+        def train_step(self, *a):
+            self.last_batch = a[:5]
+            return FeatureTrainer.train_step(self, *a)
+
+        def train_epoch(self, *a):
+            out, r = timed(lambda: FeatureTrainer.train_epoch(self, *a))
+            rec["epochs"].append(dict(r, loss=out))
+            return out
+
+        def validate(self):
+            out, r = timed(lambda: FeatureTrainer.validate(self))
+            rec["validate_s"].append(r["seconds"])
+            return out
+
+        def eval_median_error(self, split=None):
+            out, r = timed(lambda: FeatureTrainer.eval_median_error(self, split))
+            rec["evals"].append(dict(median=out[0].tolist(), seconds=r["seconds"]))
+            return out
+
+    tree, _ = load_pytree(str(ROOT / "assets" / "nerfh_synthetic_301.npz"))
+    with tempfile.TemporaryDirectory() as base:
+        save_pytree(os.path.join(base, "nerfh", "000301.npz"), {"params": tree},
+                    global_step=301)
+        argv = ["--config", str(ROOT / "configs" / "config_dfnet.txt"),
+                "--dataset_type", "synthetic", "--basedir", base,
+                "--epochs", str(FEATURE_EPOCHS), "--i_eval", str(FEATURE_EPOCHS),
+                "--device", str(device)]
+        orig = cli.load_scene, cli.FeatureTrainer
+        cli.load_scene, cli.FeatureTrainer = (lambda cfg, stage="nerf": scene), Timed
+        try:
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            cli.train(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+        finally:
+            cli.load_scene, cli.FeatureTrainer = orig
+        tr = trainers[0]
+        with open(Path(base) / "dfnet" / "metrics.jsonl") as fh:
+            metrics = [json.loads(line) for line in fh]
+        es = tr.early_stopping
+        fresh = FeatureTrainer(tr.cfg, scene, None, device=device)
+        fresh.load(es.last_path)
+        reloaded = fresh.validate()
+        ckpt = os.path.basename(es.last_path)
+    cfg = tr.cfg
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    log(f"[feature] card: {smi.strip()}")
+    log(f"[feature] config {cfg.featurenet_batch_size=} {cfg.tripletloss=} "
+        f"{cfg.random_view_synthesis=} {cfg.rvs_refresh_rate=} {cfg.tinyimg=} "
+        f"{cfg.feature_precision=} {cfg.learning_rate=}; scene {FEATURE_H}x{FEATURE_W}, "
+        f"{FEATURE_TRAIN} train / {FEATURE_VAL} val views, built on the card in "
+        f"{rec['scene_s']:.3f} s; the run {wall:.2f} s, launches {launches}")
+    if not tr.nerf.uses_fast_render:
+        raise SystemExit("stage 2's FrozenNeRF did not take the kernel render path")
+    for part in ("prerender", "rvs"):
+        if not all(rec[part]["launches"][k] > 0 for k in ("coarse_sigma_t", "fine_raw_t")):
+            raise SystemExit(f"stage 2's {part} did not launch both sweeps: {rec[part]}")
+    n_rays = FEATURE_TRAIN * tr.nerf.rh * tr.nerf.rw
+    pre = rec["prerender"]
+    pre["rays_per_s"] = n_rays / pre["seconds"]
+    log(f"[feature] pre-render: {FEATURE_TRAIN} views of {tr.nerf.rh}x{tr.nerf.rw} rays "
+        f"({n_rays} rays) in {pre['seconds']:.4f} s = {pre['rays_per_s']:.1f} rays/s, "
+        f"launches {pre['launches']}; RVS refresh {rec['rvs']['seconds']:.4f} s, "
+        f"launches {rec['rvs']['launches']}")
+    losses = [(m["train_loss"], m["val_loss"]) for m in metrics]
+    steps = -(-FEATURE_TRAIN // cfg.featurenet_batch_size)
+    steady = rec["epochs"][1:]
+    steps_per_s = steps * len(steady) / sum(e["seconds"] for e in steady)
+    log(f"[feature] epochs (train loss, val MSE): {losses}; epoch s "
+        f"{[round(e['seconds'], 4) for e in rec['epochs']]} ({steps} steps each); "
+        f"{steps_per_s:.2f} steps/s over epochs 1-{FEATURE_EPOCHS}; validate s "
+        f"{[round(v, 4) for v in rec['validate_s']]}; median errors [m, deg] "
+        f"{[e['median'] for e in rec['evals']]}")
+    if len(losses) != FEATURE_EPOCHS + 1 or not np.all(np.isfinite(losses)):
+        raise SystemExit(f"stage 2's losses are not finite over every epoch: {losses}")
+    if len(rec["evals"]) != 2 or not np.all(np.isfinite([e["median"] for e in rec["evals"]])):
+        raise SystemExit(f"stage 2 did not print a median error at epoch 0 and the end: "
+                         f"{rec['evals']}")
+    log(f"[feature] {ckpt} reloaded into a fresh trainer: val MSE {reloaded!r} "
+        f"(logged {es.val_loss_min!r})")
+    if not abs(reloaded - es.val_loss_min) <= 1e-5 * max(1.0, abs(es.val_loss_min)):
+        raise SystemExit(f"the reloaded checkpoint gives val MSE {reloaded}, not "
+                         f"{es.val_loss_min}")
+    step = feature_step_breakdown(tr)
+    log(f"[feature] step breakdown (ms, CUDA events; B={cfg.featurenet_batch_size}, "
+        f"{3 * cfg.featurenet_batch_size} encoder images): {json.dumps(step)}")
+    calls = spy_on(("coarse_sigma_t", "fine_raw_t"), lambda: tr.nerf.render_at_pose(
+        scene.train.poses[0], scene.train.hists[0]))
+    cases = [measure(n, *calls[n][-1], "nerfh_synthetic_301.npz", "feature")
+             for n in ("coarse_sigma_t", "fine_raw_t")]
+    del tr, fresh, trainers[:]
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, prerender=pre, rvs=rec["rvs"],
+                epochs=[dict(e, loss=l) for e, l in zip(rec["epochs"], losses)],
+                steps_per_s=steps_per_s, validate_s=rec["validate_s"], evals=rec["evals"],
+                reloaded_val=reloaded, step=step, parity=feature_parity(device),
+                cases=cases)
+
+
 def main() -> int:
     import torch
 
@@ -1047,6 +1359,8 @@ def main() -> int:
     probe = timed(phase_probe, device)
     cases += probe["cases"]
     train_result = timed(phase_train, device)
+    feature = timed(phase_feature, device)
+    cases += feature["cases"]
 
     # each kernel's row: its case on the main path it was ported for, and
     # the launches of every main path, each counted from 0 over its run
@@ -1066,7 +1380,8 @@ def main() -> int:
                                           + frozen["tinyimg"]["launches"][k]
                                           for k in REPLACES},
                      "probe": {**empty, **probe["launches"]},
-                     "train": train_result["launches"]}
+                     "train": train_result["launches"],
+                     "feature": feature["launches"]}
     kernels = []
     for name, (asset, sched, path) in main_case.items():
         c = next(c for c in cases if c["name"] == name and c["asset"] == asset
@@ -1087,6 +1402,7 @@ def main() -> int:
                                   for d in ("bf16", "int8")} | {"ratio": o["run"]["ratio"]}
                               for W, o in probe["widths"].items()}}))
     log(json.dumps({"train": train_result}))
+    log(json.dumps({"feature": {k: v for k, v in feature.items() if k != "cases"}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

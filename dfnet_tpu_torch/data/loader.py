@@ -9,13 +9,15 @@ import numpy as np
 from dfnet_tpu_torch.config import Config
 from dfnet_tpu_torch.data.scene import SceneData
 from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+from dfnet_tpu_torch.device import resolve_device
 
 
 def load_scene(cfg: Config, stage: str = "nerf") -> SceneData:
     """stage: 'nerf' (rescale into NeRF coords) or 'apr' (keep metric frame)."""
     if cfg.dataset_type == "synthetic":
         # 48x64 keeps VGG16's five 2x2 pools valid (each side >= 32)
-        scene = make_synthetic_scene(H=48, W=64, focal=60.0, seed=cfg.rng_seed)
+        scene = make_synthetic_scene(H=48, W=64, focal=60.0, seed=cfg.rng_seed,
+                                     device=resolve_device(cfg.device))
         if cfg.NeRFH and not cfg.encode_hist:
             _relabel_with_indices(scene, cfg.fix_index)
         return scene

@@ -1,8 +1,8 @@
 """Procedural synthetic scene for tests and benchmarks.
 
-Port copy of dfnet_tpu/data/synthetic.py (bit-exact scenes from the same
-seed). The reference ships no test data, so we generate a 3D-consistent
-analytic radiance field — a handful of colored Gaussian density blobs —
+Port of dfnet_tpu/data/synthetic.py: the same scenes from the same seed
+(the ground-truth renders run in torch, on a given device). The reference
+ships no test data, so we generate a 3D-consistent analytic radiance field — a handful of colored Gaussian density blobs —
 and ray-march it densely to produce ground-truth images from poses on a
 viewing sphere. A NeRF trained on these views must drive PSNR up; pose
 regressors get exact pose labels for free. Optional per-image brightness
@@ -14,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from dfnet_tpu_torch.data.color import luminance_histogram
 from dfnet_tpu_torch.data.scene import SceneData, Split
@@ -71,19 +72,34 @@ def sphere_poses(n: int, radius: float, seed: int = 0) -> np.ndarray:
 
 def render_gt_image(field: BlobField, pose: np.ndarray, H: int, W: int, focal: float,
                     near: float, far: float, n_samples: int = 192,
-                    brightness: float = 1.0) -> np.ndarray:
-    """Dense-quadrature volume rendering of the analytic field (numpy)."""
+                    brightness: float = 1.0, device="cpu") -> np.ndarray:
+    """Dense-quadrature volume rendering of the analytic field, in torch on
+    `device`, a few thousand pixels at a time. The types follow the numpy
+    original's promotion: rays and sample positions in float32, the field
+    and the quadrature in float64, the image cast to float32."""
     rays_o, rays_d = get_rays_np(H, W, focal, pose)
-    t = np.linspace(near, far, n_samples, dtype=np.float32)
-    pts = rays_o[..., None, :] + rays_d[..., None, :] * t[:, None]  # (H,W,S,3)
-    sigma, rgb = field.density_color(pts)
+    dev = torch.device(device)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    centers, sigmas, amps, colors = (f64(field.centers), f64(field.sigmas),
+                                     f64(field.amps), f64(field.colors))
+    t = torch.as_tensor(np.linspace(near, far, n_samples, dtype=np.float32), device=dev)
+    ro = torch.as_tensor(np.ascontiguousarray(rays_o), device=dev).reshape(-1, 3)
+    rd = torch.as_tensor(np.ascontiguousarray(rays_d), device=dev).reshape(-1, 3)
     delta = (far - near) / (n_samples - 1)
-    alpha = 1.0 - np.exp(-sigma * delta)
-    trans = np.cumprod(1.0 - alpha + 1e-10, axis=-1)
-    trans = np.concatenate([np.ones_like(trans[..., :1]), trans[..., :-1]], -1)
-    w = alpha * trans
-    img = (w[..., None] * rgb).sum(-2)
-    return np.clip(img * brightness, 0.0, 1.0).astype(np.float32)
+    out = []
+    for o, d in zip(ro.split(4096), rd.split(4096)):
+        pts = o[:, None, :] + d[:, None, :] * t[:, None]                  # (R,S,3) f32
+        d2 = torch.sum((pts[..., None, :].double() - centers) ** 2, -1)  # (R,S,K)
+        g = amps * torch.exp(-0.5 * d2 / sigmas ** 2)
+        sigma = g.sum(-1)
+        rgb = (g[..., None] * colors).sum(-2) / (g.sum(-1, keepdim=True) + 1e-8)
+        rgb = torch.clamp(rgb, 0.0, 1.0)
+        alpha = 1.0 - torch.exp(-sigma * delta)
+        trans = torch.cumprod(1.0 - alpha + 1e-10, -1)
+        trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], -1)
+        img = ((alpha * trans)[..., None] * rgb).sum(-2)
+        out.append(torch.clamp(img * brightness, 0.0, 1.0).float())
+    return torch.cat(out).reshape(H, W, 3).cpu().numpy()
 
 
 def make_synthetic_scene(
@@ -97,7 +113,9 @@ def make_synthetic_scene(
     hist_bin: int = 10,
     seed: int = 0,
     appearance_jitter: float = 0.0,
+    device="cpu",
 ) -> SceneData:
+    """The scene's views render on `device` (render_gt_image)."""
     field = make_blob_field(seed)
     rng = np.random.default_rng(seed + 1)
 
@@ -107,7 +125,8 @@ def make_synthetic_scene(
         for p in poses:
             b = 1.0 + (rng.uniform(-appearance_jitter, appearance_jitter)
                        if appearance_jitter else 0.0)
-            img = render_gt_image(field, p, H, W, focal, near, far, brightness=b)
+            img = render_gt_image(field, p, H, W, focal, near, far, brightness=b,
+                                  device=device)
             imgs.append(img)
             hists.append(luminance_histogram(img, hist_bin))
         return Split(

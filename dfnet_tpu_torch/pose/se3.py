@@ -1,5 +1,13 @@
-"""SE(3) pose helpers (port of dfnet_tpu/pose/se3.py: so far only the
-world rescale that maps APR-frame poses into the NeRF's frame)."""
+"""SE(3) pose helpers (port of dfnet_tpu/pose/se3.py): the elementary
+rotations, the Random View Synthesis perturbation, quaternion pose errors,
+the SVD rotation projection, and the world rescale that maps APR-frame
+poses into the NeRF's frame. The averaging, centering and dataset
+coordinate fixes come with the dataset readers (ROADMAP.md, Queue 1).
+
+Data-prep and metric functions are numpy, as in the JAX package, so both
+packages draw the same perturbations from the same generator;
+project_rotation_svd also has a torch form, differentiable, for train
+steps."""
 
 from __future__ import annotations
 
@@ -23,4 +31,131 @@ def rescale_poses_to_nerf(poses, pose_scale: float, move_all_cam_vec,
     move = np.asarray(move_all_cam_vec, dtype=poses.dtype)
     out = poses.copy()
     out[..., :3, 3] = (poses[..., :3, 3] * pose_scale + move) * pose_scale2
+    return out
+
+
+# ---------------------------------------------------------------------------
+# elementary rotations (4x4 homogeneous), angles in radians
+# ---------------------------------------------------------------------------
+
+def rot_phi(phi: float) -> np.ndarray:
+    """Rotation about the x axis."""
+    c, s = np.cos(phi), np.sin(phi)
+    m = np.eye(4)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return m
+
+
+def rot_theta(th: float) -> np.ndarray:
+    """Rotation about the y axis (reference's convention: [[c,0,-s],[0,1,0],[s,0,c]])."""
+    c, s = np.cos(th), np.sin(th)
+    m = np.eye(4)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, -s, s, c
+    return m
+
+
+def rot_psi(psi: float) -> np.ndarray:
+    """Rotation about the z axis."""
+    c, s = np.cos(psi), np.sin(psi)
+    m = np.eye(4)
+    m[0, 0], m[0, 1], m[1, 0], m[1, 1] = c, -s, s, c
+    return m
+
+
+# ---------------------------------------------------------------------------
+# pose perturbation (Random View Synthesis)
+# ---------------------------------------------------------------------------
+
+def perturb_rotation(c2w: np.ndarray, theta: float, phi: float, psi: float = 0.0) -> np.ndarray:
+    """Left-multiply a (3,4) pose by world-frame x/y/z rotations (degrees)."""
+    homo = np.concatenate([c2w, np.array([[0.0, 0.0, 0.0, 1.0]])], 0)
+    homo = rot_phi(phi / 180.0 * np.pi) @ homo
+    homo = rot_theta(theta / 180.0 * np.pi) @ homo
+    homo = rot_psi(psi / 180.0 * np.pi) @ homo
+    return homo[:3, :4]
+
+
+def perturb_single_render_pose(pose: np.ndarray, x: float, angle: float,
+                               rng: np.random.Generator | None = None) -> np.ndarray:
+    """RVS perturbation: random world-frame rotation of up to ±angle deg
+    per axis, then ±x translation per axis; translation is preserved
+    through the rotation step (rotation applies to orientation only here,
+    matching misc.py:448-483)."""
+    rng = rng or np.random.default_rng()
+    new = pose.copy()
+    loc = new[:, 3].copy()
+    theta, phi, psi = rng.uniform(-angle, angle, 3)
+    new = perturb_rotation(new, theta, phi, psi)
+    new[:, 3] = loc + rng.uniform(-x, x, 3)
+    return new
+
+
+# ---------------------------------------------------------------------------
+# quaternions & error metrics
+# ---------------------------------------------------------------------------
+
+def mat_to_quat(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix (...,3,3) → unit quaternion (...,4) wxyz, w>=0 not enforced.
+
+    Shepperd's method (numerically stable across all traces).
+    """
+    R = np.asarray(R, dtype=np.float64)
+    batch = R.shape[:-2]
+    R = R.reshape(-1, 3, 3)
+    q = np.empty((R.shape[0], 4))
+    for i, m in enumerate(R):
+        t = np.trace(m)
+        if t > 0:
+            r = np.sqrt(1.0 + t)
+            s = 0.5 / r
+            q[i] = [0.5 * r, (m[2, 1] - m[1, 2]) * s,
+                    (m[0, 2] - m[2, 0]) * s, (m[1, 0] - m[0, 1]) * s]
+        else:
+            k = np.argmax(np.diag(m))
+            if k == 0:
+                r = np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2])
+                s = 0.5 / r
+                q[i] = [(m[2, 1] - m[1, 2]) * s, 0.5 * r,
+                        (m[0, 1] + m[1, 0]) * s, (m[0, 2] + m[2, 0]) * s]
+            elif k == 1:
+                r = np.sqrt(1.0 - m[0, 0] + m[1, 1] - m[2, 2])
+                s = 0.5 / r
+                q[i] = [(m[0, 2] - m[2, 0]) * s, (m[0, 1] + m[1, 0]) * s,
+                        0.5 * r, (m[1, 2] + m[2, 1]) * s]
+            else:
+                r = np.sqrt(1.0 - m[0, 0] - m[1, 1] + m[2, 2])
+                s = 0.5 / r
+                q[i] = [(m[1, 0] - m[0, 1]) * s, (m[0, 2] + m[2, 0]) * s,
+                        (m[1, 2] + m[2, 1]) * s, 0.5 * r]
+    return q.reshape(*batch, 4)
+
+
+def pose_errors(pred: np.ndarray, gt: np.ndarray):
+    """Per-sample translation (m) and rotation (deg) error.
+
+    pred/gt: (N,3,4). Rotation error = 2·acos(|q_pred·q_gt|)·180/π, the
+    canonical APR metric (dm/pose_model.py:136-141).
+    """
+    q1 = mat_to_quat(gt[:, :3, :3])
+    q2 = mat_to_quat(pred[:, :3, :3])
+    q1 = q1 / np.linalg.norm(q1, axis=-1, keepdims=True)
+    q2 = q2 / np.linalg.norm(q2, axis=-1, keepdims=True)
+    d = np.clip(np.abs(np.sum(q1 * q2, -1)), -1.0, 1.0)
+    theta = 2.0 * np.degrees(np.arccos(d))
+    t_err = np.linalg.norm(gt[:, :3, 3] - pred[:, :3, 3], axis=-1)
+    return t_err, theta
+
+
+def project_rotation_svd(pose: torch.Tensor) -> torch.Tensor:
+    """Project the (..., 3, 3) rotation block of a (..., 3, 4) pose onto
+    SO(3)-ish via SVD: R <- U V^T (no det correction, as the reference's
+    torch.svd usage). Differentiable."""
+    u, _, vt = torch.linalg.svd(pose[..., :3, :3], full_matrices=False)
+    return torch.cat([u @ vt, pose[..., :3, 3:]], -1)
+
+
+def project_rotation_svd_np(pose: np.ndarray) -> np.ndarray:
+    out = np.array(pose, copy=True)
+    u, _, vt = np.linalg.svd(out[..., :3, :3])
+    out[..., :3, :3] = u @ vt
     return out

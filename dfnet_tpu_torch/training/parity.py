@@ -1,0 +1,150 @@
+"""How closely DFNet and the stage-2 step must agree across devices,
+packages and precisions: the one source of these bars and checks for
+chip_smoke.py and the tests.
+
+  - float32 (card against CPU, port against the JAX package): the bars of
+    the JAX package's golden stage-2 step against its torch replica. Loss
+    within 2e-4; each leaf's gradient within 2e-3 of its largest magnitude,
+    except the conv5_3 branch's adapt convs (2e-2, 5e-2): two images'
+    conv5_3 features are a small difference of large near-equal values,
+    so float32 cancellation sets a ~1e-2 floor there. A gradient that is
+    zero by construction (under freezeBN each adapt conv2 bias shifts both
+    siamese streams alike and cancels in every distance) must stay below
+    1e-6 on both sides. The port and the JAX package, both on the CPU, are
+    held on every leaf; the card against the CPU on the leaves that golden
+    test checks (GOLDEN_LEAVES). The card's float32 convs sum in another
+    order than the CPU's, which flips a ReLU mask wherever a pre-activation
+    lies within that rounding of zero, and one flipped element with a large
+    cotangent moves its layer's gradient by up to a few percent of the
+    scale (scripts/feature_diag.py counts the flips at these inputs).
+  - the float32 eval forward (FeatureTrainer.predict, no grad), card
+    against CPU: poses within 1e-4 of
+    max(|pose|, 1), the float32 forwards' bar against the JAX package
+    (tests/test_torch_port_dfnet.py).
+  - bf16 against float32 (the JAX package's tests/test_feature_bf16.py):
+    pose within 5% of max(|pose|, 1); BN-normalised feature maps within
+    0.08 mean absolute difference; the pose loss's gradient cosine above
+    0.97 / 0.95 / 0.85 at conv5_3 / conv3_1 / conv1_1 and its norm within
+    20% (bf16 rounding flips ReLU masks of a random-init net, and that
+    compounds over 13 layers towards the input).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from dfnet_tpu_torch.models.dfnet import DFNetConfig, conv_precision, dfnet_forward
+from dfnet_tpu_torch.training.nerf_trainer import named_leaves
+
+LOSS_TOL = 2e-4
+GRAD_TOL = 2e-3
+GRAD_TOL_LEAF = {"adapt/2/conv1/w": 2e-2, "adapt/2/conv2/w": 5e-2}
+ZERO_GRAD = 1e-6
+# the leaves tests/test_golden_e2e.py::test_stage2_rvs_step_golden holds
+GOLDEN_LEAVES = ("encoder/conv1_1/w", "encoder/conv5_3/w", "encoder/conv5_3/b",
+                 "adapt/0/conv1/w", "adapt/0/conv2/w", "adapt/2/conv1/w",
+                 "adapt/2/conv2/w", "adapt/2/conv2/b", "fc_pose/w", "fc_pose/b")
+EVAL_POSE_TOL = 1e-4
+
+BF16_POSE = 0.05
+BF16_FEATURE = 0.08
+BF16_GRAD_COS = {"conv5_3": 0.97, "conv3_1": 0.95, "conv1_1": 0.85}
+BF16_GRAD_NORM = 0.2
+
+# the stage-2 config of the JAX package's golden step
+# (tests/test_golden_e2e.py::test_stage2_rvs_step_golden), less its size
+GOLDEN_FLAGS = ["--NeRFH", "--encode_hist", "--dataset_type", "synthetic", "--DFNet",
+                "--tripletloss", "--freezeBN", "--random_view_synthesis",
+                "--triplet_ref_axis", "True", "--triplet_margin", "1.0",
+                "--combine_loss_w", "0.3,0.4,0.5", "--feature_precision", "fp32"]
+
+
+def golden_batch():
+    """The golden step's inputs, drawn as that test draws them: targets,
+    renders, RVS views (4, 3, 32, 48) in [0, 1], poses and RVS poses (4, 12)."""
+    g = torch.Generator().manual_seed(4)
+    t, r, v = (torch.rand(4, 3, 32, 48, generator=g) for _ in range(3))
+    poses, poses_p = torch.randn(4, 12, generator=g), torch.randn(4, 12, generator=g)
+    return t, r, poses, v, poses_p
+
+
+def loss_and_grads(trainer, batch) -> Tuple[float, Dict[str, np.ndarray]]:
+    """The trainer's loss on `batch` (moved to its device) and the gradient
+    of every param leaf, by path, as numpy; the params are left as they were."""
+    batch = [b.to(trainer.device) for b in batch]
+    for _, t in trainer._named:
+        t.grad = None
+    with conv_precision(trainer.compute_dtype):
+        loss, _ = trainer.loss_fn(trainer.params, trainer.state, *batch)
+        loss.backward()
+    grads = {k: t.grad.cpu().numpy() for k, t in trainer._named}
+    for _, t in trainer._named:
+        t.grad = None
+    return float(loss.detach()), grads
+
+
+def golden_agreement(loss: float, grads: Dict[str, np.ndarray], ref_loss: float,
+                     ref_grads: Dict[str, np.ndarray], leaves=None) -> Tuple[bool, Dict]:
+    """The float32 bars on `leaves` (default: every leaf): (ok, {"loss_err",
+    "grad_err": per-leaf relative error, "worst"})."""
+    errs, ok = {}, abs(loss - ref_loss) < LOSS_TOL
+    for k in leaves or ref_grads:
+        want = ref_grads[k]
+        scale = float(np.abs(want).max())
+        if scale < ZERO_GRAD:
+            errs[k] = float(np.abs(grads[k]).max())
+            ok &= errs[k] < ZERO_GRAD
+            continue
+        errs[k] = float(np.abs(grads[k] - want).max()) / scale
+        ok &= errs[k] < GRAD_TOL_LEAF.get(k, GRAD_TOL)
+    worst = max(errs, key=lambda k: errs[k] / GRAD_TOL_LEAF.get(k, GRAD_TOL))
+    return bool(ok), {"loss_err": abs(loss - ref_loss), "worst": worst,
+                      "grad_err": errs}
+
+
+def eval_agreement(pose: torch.Tensor, ref: torch.Tensor) -> Tuple[bool, float]:
+    """The eval forward's bar: (ok, largest |pose - ref|) for (B, 12) poses."""
+    err = float((pose.cpu() - ref.cpu()).abs().max())
+    return err < EVAL_POSE_TOL * max(float(ref.abs().max()), 1.0), err
+
+
+def bf16_agreement(params: Dict, state: Dict, x: torch.Tensor,
+                   cfg: DFNetConfig = DFNetConfig()) -> Tuple[bool, Dict]:
+    """bf16 against float32 on x's device: a single-stream train-BN forward
+    (features upsampled to x's size, pose) and the gradient of mean(pose²)
+    through an eval-BN pose forward, held to the bf16 bars."""
+    h, w = x.shape[-2:]
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        with torch.no_grad():
+            feats, pose, _ = dfnet_forward(params, state, x, cfg, return_feature=True,
+                                           is_single_stream=True, upsample_h=h,
+                                           upsample_w=w, train_bn=True, compute_dtype=dt)
+        p = {k: {n: t.detach().clone().requires_grad_() for n, t in v.items()}
+             for k, v in params["encoder"].items()}
+        named = dict(named_leaves(p))
+        with conv_precision(dt):
+            _, pose_g, _ = dfnet_forward({**params, "encoder": p}, state, x, cfg,
+                                         compute_dtype=dt)
+            torch.mean(pose_g ** 2).backward()
+        out[dt] = (feats[0], pose, {k: named[f"{k}/w"].grad.flatten()
+                                    for k in BF16_GRAD_COS})
+    (f32, p32, g32), (fbf, pbf, gbf) = out[torch.float32], out[torch.bfloat16]
+    pose_err = float((pbf - p32).abs().max())
+    pose_bar = BF16_POSE * max(float(p32.abs().max()), 1.0)
+    feat_err = float((fbf.float() - f32).abs().mean())
+    info = {"pose_err": pose_err, "pose_bar": pose_bar, "feature_err": feat_err,
+            "dtypes": [str(fbf.dtype), str(pbf.dtype)], "grad": {}}
+    ok = (pose_err < pose_bar and feat_err < BF16_FEATURE and fbf.dtype == torch.bfloat16
+          and pbf.dtype == torch.float32
+          and all(g.dtype == torch.float32 for g in gbf.values()))
+    for k, min_cos in BF16_GRAD_COS.items():
+        a, b = g32[k].double(), gbf[k].double()
+        na, nb = float(a.norm()), float(b.norm())
+        cos = float(a @ b) / (na * nb + 1e-30)
+        info["grad"][k] = {"cos": cos, "norm_ratio": nb / max(na, 1e-30)}
+        ok &= cos > min_cos and abs(nb - na) < BF16_GRAD_NORM * na
+    return bool(ok), info

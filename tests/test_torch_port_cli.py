@@ -83,8 +83,9 @@ def test_port_imports_neither_jax_nor_dfnet_tpu():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dfnet_tpu' or m.startswith('dfnet_tpu.')]\n"
         "print(len([m for m in sys.modules if m.startswith('dfnet_tpu_torch')]))\n"
+        "assert 'dfnet_tpu_torch.cli.feature' in sys.modules\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 20
+    assert int(r.stdout.split()[-1]) >= 48      # stage 2 included

@@ -554,3 +554,97 @@ def test_mlp_stack_kernel_occupancy_and_widths(cuda):
         x, ws = ms.probe_inputs("int8", W, 8, 2, cuda)
         with pytest.raises(ValueError, match="W in"):
             ms.mlp_stack_int8(x, ws)
+
+
+# ------------------------------------------------------------------ stage 2
+
+def _feature_trainer(device, *flags, nerf=None, H=32, W=48):
+    """A stage-2 trainer at the golden step's config from a seeded init,
+    the same params on every device."""
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.training import parity
+    from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
+
+    sc = make_synthetic_scene(n_train=4, n_val=2, H=H, W=W, focal=60.0 * W / 64)
+    cfg = parse_args(parity.GOLDEN_FLAGS + ["--featurenet_batch_size", "4",
+                                            "--device", str(device), *flags],
+                     stage="feature")
+    return FeatureTrainer(cfg, sc, nerf, gen=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.gpu
+def test_dfnet_float32_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The golden step's loss and gradients, card against CPU, under the
+    golden bars on the golden test's leaves (training/parity.py), with
+    PyTorch's TF32 default left on: the port keeps its float32 convs IEEE
+    itself, and restores the flags."""
+    from dfnet_tpu_torch.training import parity
+
+    batch = parity.golden_batch()
+    want = parity.loss_and_grads(_feature_trainer("cpu", "--basedir", str(tmp_path)), batch)
+    torch.backends.cudnn.allow_tf32 = True
+    got = parity.loss_and_grads(_feature_trainer(cuda, "--basedir", str(tmp_path)), batch)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled
+    ok, info = parity.golden_agreement(*got, *want, leaves=parity.GOLDEN_LEAVES)
+    assert ok, info
+
+
+@pytest.mark.gpu
+def test_dfnet_float32_eval_forward_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """predict (the no-grad float32 eval forward) on the card against the
+    CPU under parity.EVAL_POSE_TOL, with PyTorch's TF32 default left on: the
+    port keeps its float32 convs IEEE itself, and restores the flags."""
+    from dfnet_tpu_torch.training import parity
+
+    x = torch.cat([parity.golden_batch()[i] for i in (0, 1, 3)])
+    want = _feature_trainer("cpu", "--basedir", str(tmp_path)).predict(x)
+    torch.backends.cudnn.allow_tf32 = True
+    got = _feature_trainer(cuda, "--basedir", str(tmp_path)).predict(x.to(cuda))
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled
+    ok, err = parity.eval_agreement(got, want)
+    assert ok, err
+
+
+@pytest.mark.gpu
+def test_dfnet_bf16_tracks_float32_on_the_card(cuda, tmp_path):
+    """bf16 against float32 on the card under the bf16 bars, and a bf16 train
+    step: finite loss, float32 params and BN state."""
+    from dfnet_tpu_torch.training import parity
+
+    tr = _feature_trainer(cuda, "--basedir", str(tmp_path), "--feature_precision", "bf16")
+    batch = [b.to(cuda) for b in parity.golden_batch()]
+    ok, info = parity.bf16_agreement(tr.params, tr.state, torch.cat(batch[0:2]))
+    assert ok, info
+    loss = tr.train_step(*batch, 1e-4)
+    assert torch.isfinite(loss) and loss.dtype == torch.float32
+    assert all(t.dtype == torch.float32 for _, t in tr._named)
+    assert tr.state["adapt"]["0"]["var"].dtype == torch.float32
+
+
+@pytest.mark.gpu
+def test_feature_prerender_and_rvs_launch_the_sweeps(cuda, tmp_path):
+    """Stage 2's pre-render and RVS refresh through FrozenNeRF on the trained
+    asset (tinyimg): coarse_sigma_t and fine_raw_t launch in each."""
+    import os
+
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.training.checkpoints import load_pytree, save_pytree
+    from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tree, _ = load_pytree(os.path.join(root, "assets", "nerfh_synthetic_301.npz"))
+    save_pytree(str(tmp_path / "nerfh" / "000301.npz"), {"params": tree})
+    flags = ["--basedir", str(tmp_path), "--expname", "nerfh", "--tinyimg"]
+    tr = _feature_trainer(cuda, *flags, H=48, W=64)
+    sc = tr.scene
+    tr.nerf = FrozenNeRF.from_experiment(parse_args(flags + ["--NeRFH", "--encode_hist",
+                                                             "--device", "cuda"]),
+                                         sc.hwf, sc.near, sc.far, sc.world_setup)
+    assert tr.nerf.uses_fast_render
+    for run in (tr.prerender_train_views,
+                lambda: tr.rvs_refresh(np.random.default_rng(0))[1]):
+        nk.reset_launches()
+        views = run()
+        assert views.shape == (4, 48, 64, 3) and np.isfinite(views).all()
+        assert nk.LAUNCHES["coarse_sigma_t"] > 0 and nk.LAUNCHES["fine_raw_t"] > 0
