@@ -88,6 +88,27 @@ Phases (any failure exits non-zero):
                s, rays/s and launches, the RVS refresh s, the step's
                breakdown by CUDA events with its conv FLOPs' share of the
                bf16 peak, steps/s, validate s and the median errors.
+  10. dm    — stage 3: the port's stage-3 CLI at the shipped stage-3 config
+               (configs/config_dfnetdm.txt: DFNet at full width, svd_reg,
+               combine_loss_w [0, 0, 1], level 0, val_on_psnr, lr 1e-5,
+               bf16) fine-tuning phase 9's best checkpoint, fed by the
+               trained asset's plain render (60x80 rays upsampled to
+               240x320), on the 240x320 scene of DM_TRAIN train and DM_VAL
+               val views, epochs 0-2. The run must launch none of the seven
+               kernels (pose gradients need the plain renderer), every
+               epoch's losses be finite, dL/dpose at the first step finite
+               and non-zero, F's leaves move and G's and the NeRF's stay
+               bit-identical, the best checkpoint reload with the same val
+               pose MSE; bf16 track float32 (the predicted pose), the
+               batched step at K=2 match the per-image step (5e-5, float32),
+               and the float32 step on the card match the CPU at the CPU
+               parity tests' inputs (dm_parity: at the CPU's render pose
+               under the float32 bars, and at the card's own pose dL/dpose
+               under parity.DM_DPOSE_OWN_POSE). `[dm]` lines give the
+               step's breakdown by CUDA events, its idle share under
+               torch.profiler, its operations and bounds,
+               steps/s, eval_epoch s, the median errors, peak memory at
+               K=1, 2 and 4 and the batched steps' images/s.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.
 """
@@ -96,6 +117,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -135,6 +157,12 @@ FEATURE_TRAIN, FEATURE_VAL = 200, 100
 FEATURE_H, FEATURE_W, FEATURE_FOCAL = 240, 320, 300.0   # the 48x64 field x5
 FEATURE_EPOCHS = 3
 FEATURE_STEP_REPS = 20
+# phase_dm: configs/config_dfnetdm.txt (7-Scenes heads at df=2; 200 test
+# frames at trainskip 5, 1,000 val) on phase_feature's scene, views cut
+DM_TRAIN, DM_VAL = 40, 20
+DM_EPOCHS = 2
+DM_STEP_REPS = 10
+DM_PARITY_VIEWS = (1, 3)
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_INT8 = 1979e12         # H100 SXM dense int8 OP/s (data sheet)
 PEAK_F32 = 67e12            # H100 SXM float32 FLOP/s outside the tensor cores
@@ -1028,24 +1056,34 @@ def step_breakdown(tr, reps: int = 10):
     return out
 
 
-def dfnet_conv_flops(h: int, w: int, n_enc: int, n_feat: int,
-                     taps=("conv1_2", "conv3_3", "conv5_3")) -> int:
-    """Forward conv FLOPs of one DFNet call: the 13 VGG16 convs over n_enc
-    images of h x w, the adapt convs (1x1 to 64, 5x5 to 128) over n_feat."""
+def vgg_conv_flops(h: int, w: int) -> list:
+    """[(name, forward FLOPs on one h x w image, (h, w, channels) out)] of
+    the 13 VGG16 convs, in order."""
     from dfnet_tpu_torch.models.vgg import VGG16_LAYOUT
 
-    flops, cin, at = 0, 3, {}
+    out, cin = [], 3
     for e in VGG16_LAYOUT:
         if e == "M":
             h, w = h // 2, w // 2
             continue
-        flops += 2 * h * w * cin * e[1] * 9 * n_enc
-        at[e[0]] = (h, w, e[1])
+        out.append((e[0], 2 * h * w * cin * e[1] * 9, (h, w, e[1])))
         cin = e[1]
-    for name in taps:
-        th, tw, c = at[name]
-        flops += 2 * th * tw * n_feat * (c * 64 + 64 * 128 * 25)
-    return flops
+    return out
+
+
+def adapt_conv_flops(h: int, w: int, taps) -> dict:
+    """Forward FLOPs of each tap's adapt convs (1x1 to 64, 5x5 to 128) on
+    one h x w image."""
+    at = {n: shape for n, _, shape in vgg_conv_flops(h, w)}
+    return {t: 2 * at[t][0] * at[t][1] * (at[t][2] * 64 + 64 * 128 * 25) for t in taps}
+
+
+def dfnet_conv_flops(h: int, w: int, n_enc: int, n_feat: int,
+                     taps=("conv1_2", "conv3_3", "conv5_3")) -> int:
+    """Forward conv FLOPs of one DFNet call: the 13 VGG16 convs over n_enc
+    images of h x w, the adapt convs (1x1 to 64, 5x5 to 128) over n_feat."""
+    return (n_enc * sum(f for _, f, _ in vgg_conv_flops(h, w))
+            + n_feat * sum(adapt_conv_flops(h, w, taps).values()))
 
 
 def feature_parity(device):
@@ -1168,7 +1206,7 @@ def feature_step_breakdown(tr, reps: int = FEATURE_STEP_REPS):
     return out
 
 
-def phase_feature(device):
+def phase_feature(device, handoff: str):
     """Stage 2 through the port's CLI at the shipped stage-2 config
     (configs/config_dfnet.txt: DFNet, triplet, batch 4, RVS, tinyimg, bf16)
     on a 240x320 synthetic scene of FEATURE_TRAIN train and FEATURE_VAL val
@@ -1179,7 +1217,8 @@ def phase_feature(device):
     fresh trainer with the same val MSE; a median error at epochs 0 and the
     end; DFNet float32 card against CPU and bf16 against float32
     (feature_parity). Figures: pre-render s, rays/s and launches, RVS s, the
-    step's breakdown and steps/s, validate s, median errors."""
+    step's breakdown and steps/s, validate s, median errors. The best
+    checkpoint is copied into `handoff` for phase_dm ("best_ckpt")."""
     import torch
 
     from dfnet_tpu_torch.cli import feature as cli
@@ -1263,6 +1302,7 @@ def phase_feature(device):
         fresh.load(es.last_path)
         reloaded = fresh.validate()
         ckpt = os.path.basename(es.last_path)
+        best_ckpt = shutil.copy(es.last_path, os.path.join(handoff, ckpt))
     cfg = tr.cfg
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -1316,7 +1356,400 @@ def phase_feature(device):
                 epochs=[dict(e, loss=l) for e, l in zip(rec["epochs"], losses)],
                 steps_per_s=steps_per_s, validate_s=rec["validate_s"], evals=rec["evals"],
                 reloaded_val=reloaded, step=step, parity=feature_parity(device),
-                cases=cases)
+                cases=cases, best_ckpt=best_ckpt)
+
+
+def nerf_point_flops(p: dict, width: int, sigma_only: bool) -> int:
+    """Matmul FLOPs a sample point of one NeRF-W net's forward: every
+    layer's (rows, cols), but only the W point rows of `dir` and
+    `trans_0` (their direction and embedding rows are per ray)."""
+    keys = [k for k in p if isinstance(p[k], dict) and "w" in p[k]
+            and (not sigma_only or k.startswith("xyz_") and k != "xyz_final"
+                 or k == "static_sigma")]
+    rows = lambda k: width if k in ("dir", "trans_0") else p[k]["w"].shape[0]
+    return 2 * sum(rows(k) * p[k]["w"].shape[1] for k in keys)
+
+
+def dm_step_ops(tr) -> dict:
+    """The operations of one stage-3 step (K=1) on its inputs. The render:
+    float32 MLP FLOPs of the coarse sweep forward (its output feeds only
+    the detached fine z) and the fine sweep forward and input-gradient
+    backward (the NeRF's weights are frozen), per-ray work left out. DFNet
+    (bf16 convs): F on one image, forward, weight and input gradients (no
+    input gradient of conv1_1); G on [image; render], forward with the
+    adapt branch on all levels, and the input-gradient backward of both
+    images through the encoder up to the deepest selected tap and the
+    selected adapt levels (the batch's input needs a gradient, so autograd
+    computes it for both)."""
+    nerf, s = tr.nerf, tr.nerf.settings
+    rays = nerf.rh * nerf.rw
+    W = nerf.model.cfg_fine.W
+    coarse = nerf_point_flops(nerf.params["coarse"], nerf.model.cfg_coarse.W, True)
+    fine = nerf_point_flops(nerf.params["fine"], W, False)
+    render = rays * (s.N_samples * coarse + 2 * (s.N_samples + s.N_importance) * fine)
+    H, Wd = tr.scene.H, tr.scene.W
+    enc = vgg_conv_flops(H, Wd)
+    taps = tr.model_cfg.hypercolumn_layers
+    adapt = adapt_conv_flops(H, Wd, taps)
+    sel = [taps[i] for i in tr.cfg.feature_matching_lvl]
+    deepest = max(i for i, (n, _, _) in enumerate(enc) if n in sel)
+    f_enc = sum(f for _, f, _ in enc)
+    dfnet = (2 * f_enc + sum(f for _, f, _ in enc[1:])
+             + 2 * (f_enc + sum(adapt.values()))
+             + 2 * (sum(f for _, f, _ in enc[:deepest + 1]) + sum(adapt[t] for t in sel)))
+    return {"render_f32_tflop": render / 1e12, "render_bound_ms": render / PEAK_F32 * 1e3,
+            "fine_mflop_a_point": fine / 1e6, "coarse_mflop_a_point": coarse / 1e6,
+            "dfnet_bf16_tflop": dfnet / 1e12, "dfnet_bound_ms": dfnet / PEAK_BF16 * 1e3}
+
+
+def dm_step_breakdown(tr, i: int = 0, reps: int = DM_STEP_REPS) -> dict:
+    """One stage-3 step (K=1, train view i) by CUDA events: the whole step
+    (median of reps), and apart, each with autograd recording as in the
+    step: F forward (with the SVD projection), the render forward, G
+    forward + losses, the backward, Adam."""
+    import torch
+
+    from dfnet_tpu_torch.models.dfnet import conv_precision
+    from dfnet_tpu_torch.utils.timing import cuda_ms
+
+    images, poses12, hists = tr.train_data
+    img, p12, h = images[i:i + 1], poses12[i:i + 1], hists[i:i + 1]
+    nerf, dt = tr.nerf, tr.compute_dtype
+    out = {"step_ms": cuda_ms(lambda: tr.train_step(img, p12, h), reps=reps)}
+    with conv_precision(dt):
+        out["f_forward_ms"] = cuda_ms(lambda: tr.predict_poses(tr.params, img, dt), reps=reps)
+        poses = tr.predict_poses(tr.params, img, dt)
+        out["render_forward_ms"] = cuda_ms(lambda: tr.render(nerf.params, poses, h), reps=reps)
+        rgbs = tr.render(nerf.params, poses, h)
+        out["g_forward_loss_ms"] = cuda_ms(
+            lambda: tr.match_losses(poses, rgbs, tr.feat_params, img, p12), reps=reps)
+        del poses, rgbs
+        times = []
+        for _ in range(reps):
+            loss = tr.batched_loss_fn(tr.params, nerf.params, tr.feat_params, img, p12, h)[0]
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss.backward()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            tr.optimizer.zero_grad(set_to_none=True)
+    out["backward_ms"] = float(np.median(times))
+    out["adam_ms"] = cuda_ms(tr.adam_update, reps=reps)
+    out["rest_ms"] = out["step_ms"] - sum(out[k] for k in (
+        "f_forward_ms", "render_forward_ms", "g_forward_loss_ms", "backward_ms", "adam_ms"))
+    out["render_share"] = out["render_forward_ms"] / out["step_ms"]
+    out["steps_per_s_events"] = 1e3 / out["step_ms"]
+    return out
+
+
+def dm_step_profile(tr, i: int = 0, steps: int = 5) -> dict:
+    """The stage-3 step (K=1, train view i) of the phase's own trainer under
+    torch.profiler: the device's busy time a step (the kernels' summed
+    device time) against the step's host time, the idle share, the float32
+    GEMMs' device time (the render's MLP) and the five kernels with the
+    most device time. The idle share is None when the profiler records no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    images, poses12, hists = tr.train_data
+    step = lambda: tr.train_step(images[i:i + 1], poses12[i:i + 1], hists[i:i + 1])
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    ev = prof.key_averages()
+    ms = lambda e: e.self_device_time_total / 1e3 / steps
+    busy = sum(ms(e) for e in ev)
+    sgemm = sum(ms(e) for e in ev if "gemm" in e.key and ("sgemm" in e.key or "f32" in e.key))
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
+    return {"step_host_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if busy > 0 else None, "float32_gemm_ms": sgemm,
+            "top_kernels_ms": [(e.key[:80], e.count // steps, ms(e)) for e in top]}
+
+
+def dm_peak_memory(tr, k: int) -> float:
+    """Peak device bytes (GB) of one update on k train views."""
+    import torch
+
+    images, poses12, hists = tr.train_data
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(images[:k], poses12[:k], hists[:k])
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def dm_parity(device):
+    """The DM step on the card against the CPU at float32, at the CPU
+    parity tests' config and inputs (training/parity.py::dm_trainer: the
+    48x64 scene, the D=2 W=32 NeRF, DFNet at full width), on train views
+    DM_PARITY_VIEWS, with PyTorch's TF32 default on for cuDNN: F's
+    predicted pose within EVAL_POSE_TOL; then, the card rendering at the
+    CPU's predicted pose (the DM gradient is not smooth in the pose below
+    float32's rounding of it, parity.dm_loss_and_grads), the loss within
+    LOSS_TOL, dL/dpose (fc_pose/b's gradient) within GRAD_TOL of its scale
+    and F's gradients on DM_LEAVES under the float32 bars, F's adapt leaves
+    below ZERO_GRAD on both sides; and the card rendering at its own
+    predicted pose, dL/dpose within DM_DPOSE_OWN_POSE of its scale; for
+    combine_loss_w [0.2, 0.3, 0.5] and [0, 0, 1]."""
+    import torch
+
+    from dfnet_tpu_torch.training import parity
+
+    out = {}
+    with tempfile.TemporaryDirectory() as base:
+        for w in ("0.2,0.3,0.5", "0,0,1"):
+            cpu = parity.dm_trainer(base, "cpu", "--combine_loss_w", w)
+            card = parity.dm_trainer(base, device, "--combine_loss_w", w)
+            sc = cpu.scene
+            for i in DM_PARITY_VIEWS:
+                view = (sc.train.images[i], sc.train.poses[i].reshape(1, 12),
+                        sc.train.hists[i])
+                want = parity.dm_loss_and_grads(cpu, *view)
+                prev = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    got = parity.dm_loss_and_grads(card, *view, render_pose=want[3])
+                    own = parity.dm_loss_and_grads(card, *view)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = prev
+                pose_ok, pose_err = parity.eval_agreement(torch.tensor(got[3]),
+                                                          torch.tensor(want[3]))
+                ok, info = parity.dm_agreement(got[0], got[2], want[0], want[2],
+                                               leaves=parity.DM_LEAVES)
+                dp_ref = want[2]["fc_pose/b"]
+                scale = float(np.abs(dp_ref).max())
+                rel = lambda g: float(np.abs(g["fc_pose/b"] - dp_ref).max()) / scale
+                ok = (ok and pose_ok and scale > 0 and rel(got[2]) < parity.GRAD_TOL
+                      and rel(own[2]) < parity.DM_DPOSE_OWN_POSE
+                      and np.isfinite(got[2]["fc_pose/b"]).all())
+                key = f"[{w}] view {i}"
+                out[key] = {"loss": [got[0], want[0]], "loss_err": info["loss_err"],
+                            "pose_err": pose_err, "dpose_err": rel(got[2]),
+                            "dpose_err_own_pose": rel(own[2]),
+                            "dpose_own_pose_bar": parity.DM_DPOSE_OWN_POSE,
+                            "dpose_scale": scale,
+                            "grad_err": {k: info["grad_err"][k] for k in parity.DM_LEAVES},
+                            "adapt_max": info["adapt_max"]}
+                log(f"[dm] float32 card against CPU, combine_loss_w {key}: "
+                    f"{json.dumps(out[key])}")
+                if not ok:
+                    raise SystemExit(f"the DM step on the card disagrees with the CPU: "
+                                     f"{out[key]}")
+    return out
+
+
+def phase_dm(device, stage2_ckpt: str):
+    """Stage 3 through the port's CLI at configs/config_dfnetdm.txt (DFNet
+    at full width, svd_reg, combine_loss_w [0, 0, 1], level 0,
+    val_on_psnr, lr 1e-5, bf16), fine-tuning phase_feature's best stage-2
+    checkpoint, the frozen NeRF the trained asset (60x80 renders
+    upsampled to 240x320), on the 240x320 synthetic scene of DM_TRAIN
+    train and DM_VAL val views, epochs 0..DM_EPOCHS. Checks: no kernel
+    launches in the run; every epoch's losses finite; dL/dpose at the first
+    step finite and non-zero; F's leaves move, G's and the NeRF's stay
+    bit-identical; the best checkpoint reloads into a fresh trainer with the
+    same val pose loss; bf16 against float32 on the card (the predicted
+    pose); the batched step at K=2 against the per-image step at float32;
+    float32 card against CPU (dm_parity). Figures: the step's breakdown,
+    its device busy time and idle share (dm_step_profile), its operations
+    and bounds, steps/s, eval_epoch s, median errors, peak
+    memory at K=1, 2 and 4, the K=2 and K=4 steps' time."""
+    import torch
+
+    from dfnet_tpu_torch.cli import dm as cli
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.models.dfnet import conv_precision
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.training import parity
+    from dfnet_tpu_torch.training.checkpoints import load_pytree, save_pytree
+    from dfnet_tpu_torch.training.dm_trainer import DMTrainer
+    from dfnet_tpu_torch.training.nerf_trainer import named_leaves
+    from dfnet_tpu_torch.utils.timing import cuda_ms
+
+    scene = make_synthetic_scene(n_train=DM_TRAIN, n_val=DM_VAL, H=FEATURE_H, W=FEATURE_W,
+                                 focal=FEATURE_FOCAL, seed=0, device=device)
+    rec = {"epochs": [], "evals": [], "eval_epoch_s": []}
+    trainers = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    snap = lambda tree: [v.detach().clone() for _, v in named_leaves(tree)]
+
+    class Timed(DMTrainer):
+        """The CLI's trainer, timing its parts, keeping its leaves at the
+        start and dL/dpose of its first step."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            trainers.append(self)
+            self.start = (snap(self.params), snap(self.feat_params), snap(self.nerf.params))
+            self.first_dpose = None
+
+        def train_step(self, *a):
+            out = DMTrainer.train_step(self, *a)
+            if self.first_dpose is None:
+                self.first_dpose = dict(self._named)["fc_pose/b"].grad.cpu().numpy()
+            return out
+
+        def train_epoch(self, rng):
+            out, s = timed(lambda: DMTrainer.train_epoch(self, rng))
+            rec["epochs"].append(dict(seconds=s, loss=out[0], psnr=out[1]))
+            return out
+
+        def eval_epoch(self):
+            out, s = timed(lambda: DMTrainer.eval_epoch(self))
+            rec["eval_epoch_s"].append(s)
+            return out
+
+        def eval_median_error(self, split=None):
+            out, s = timed(lambda: DMTrainer.eval_median_error(self, split))
+            rec["evals"].append(dict(median=out[0].tolist(), seconds=s))
+            return out
+
+    tree, _ = load_pytree(str(ROOT / "assets" / "nerfh_synthetic_301.npz"))
+    with tempfile.TemporaryDirectory() as base:
+        save_pytree(os.path.join(base, "nerfh", "000301.npz"), {"params": tree},
+                    global_step=301)
+        argv = ["--config", str(ROOT / "configs" / "config_dfnetdm.txt"),
+                "--dataset_type", "synthetic", "--basedir", base,
+                "--pretrain_model_path", stage2_ckpt,
+                "--pretrain_featurenet_path", stage2_ckpt,
+                "--epochs", str(DM_EPOCHS), "--i_eval", str(DM_EPOCHS),
+                "--device", str(device)]
+        orig = cli.load_scene, cli.DMTrainer
+        cli.load_scene, cli.DMTrainer = (lambda cfg, stage="nerf": scene), Timed
+        try:
+            nk.reset_launches()
+            t0 = time.perf_counter()
+            cli.train(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(nk.LAUNCHES)
+        finally:
+            cli.load_scene, cli.DMTrainer = orig
+        tr = trainers[0]
+        with open(Path(base) / "dfnetdm" / "metrics.jsonl") as fh:
+            metrics = [json.loads(line) for line in fh]
+        es = tr.early_stopping
+        best = os.path.basename(es.last_path)
+        best_epoch = int(best.split("-")[1])
+        fresh = DMTrainer(tr.cfg.replace(pretrain_model_path=es.last_path), scene, tr.nerf,
+                          device=device)
+        reloaded = fresh.eval_epoch()[0]
+        del fresh
+    cfg = tr.cfg
+    log(f"[dm] config {cfg.combine_loss_w=} {cfg.feature_matching_lvl=} {cfg.svd_reg=} "
+        f"{cfg.val_on_psnr=} {cfg.learning_rate=} {cfg.feature_precision=} "
+        f"{cfg.freezeBN=} {cfg.N_rand=} {cfg.dm_batch_size=}; NeRF D={cfg.netdepth_fine} "
+        f"W={cfg.netwidth_fine} {cfg.N_samples}+{cfg.N_importance} samples at "
+        f"{tr.nerf.rh}x{tr.nerf.rw} -> {FEATURE_H}x{FEATURE_W}; {DM_TRAIN} train / "
+        f"{DM_VAL} val views; from {os.path.basename(stage2_ckpt)}; the run {wall:.2f} s, "
+        f"launches {launches}")
+    if any(launches.values()):
+        raise SystemExit(f"stage 3 launched kernels, and its renders must take the plain "
+                         f"renderer: {launches}")
+    losses = [(m["train_loss"], m["val_loss"], m["train_psnr"], m["val_psnr"])
+              for m in metrics]
+    steady = rec["epochs"][1:]
+    steps_per_s = DM_TRAIN * len(steady) / sum(e["seconds"] for e in steady)
+    log(f"[dm] epochs (train loss, val pose MSE, train PSNR, val PSNR): {losses}; epoch s "
+        f"{[round(e['seconds'], 4) for e in rec['epochs']]} ({DM_TRAIN} steps each); "
+        f"{steps_per_s:.3f} steps/s over epochs 1-{DM_EPOCHS}; eval_epoch s "
+        f"{[round(v, 4) for v in rec['eval_epoch_s']]}; median errors [m, deg] "
+        f"{[e['median'] for e in rec['evals']]}")
+    if len(losses) != DM_EPOCHS + 1 or not np.all(np.isfinite(losses)):
+        raise SystemExit(f"stage 3's losses are not finite over every epoch: {losses}")
+    if len(rec["evals"]) != 2 or not np.all(np.isfinite([e["median"] for e in rec["evals"]])):
+        raise SystemExit(f"stage 3 did not print a median error at epoch 0 and the end: "
+                         f"{rec['evals']}")
+    dpose = tr.first_dpose
+    log(f"[dm] dL/dpose at the first step (fc_pose/b's gradient): {dpose.tolist()}")
+    if not (np.isfinite(dpose).all() and np.abs(dpose).max() > 0):
+        raise SystemExit(f"dL/dpose at the first step is not finite and non-zero: {dpose}")
+    f0, g0, n0 = tr.start
+    moved = sum(not torch.equal(a, b) for a, (_, b) in zip(f0, named_leaves(tr.params)))
+    same_g = all(torch.equal(a, b) for a, (_, b) in zip(g0, named_leaves(tr.feat_params)))
+    same_n = all(torch.equal(a, b) for a, (_, b) in zip(n0, named_leaves(tr.nerf.params)))
+    log(f"[dm] F: {moved} of {len(f0)} leaves moved; G bit-identical {same_g}; NeRF "
+        f"bit-identical {same_n}")
+    if not (moved and same_g and same_n):
+        raise SystemExit("stage 3 must move F's leaves and leave G's and the NeRF's as "
+                         "they were")
+    logged = metrics[best_epoch]["val_loss"]
+    log(f"[dm] {best} reloaded into a fresh trainer: val pose MSE {reloaded!r} (logged "
+        f"{logged!r})")
+    if not abs(reloaded - logged) <= 1e-5 * max(1.0, abs(logged)):
+        raise SystemExit(f"the reloaded checkpoint gives val pose MSE {reloaded}, not "
+                         f"{logged}")
+
+    step = dm_step_breakdown(tr)
+    profiled = dm_step_profile(tr)
+    ops = dm_step_ops(tr)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    log(f"[dm] card: {smi.strip()}")
+    log(f"[dm] step breakdown (ms, CUDA events; K=1): {json.dumps(step)}")
+    log(f"[dm] step under torch.profiler (ms a step, K=1): {json.dumps(profiled)}")
+    log(f"[dm] step operations and bounds: {json.dumps(ops)}")
+    memory = {f"K={k}": dm_peak_memory(tr, k) for k in (1, 2, 4)}
+    log(f"[dm] peak memory (GB, max_memory_allocated over one update): {json.dumps(memory)}")
+    images, poses12, hists = tr.train_data
+    batched = {f"K={k}": cuda_ms(lambda k=k: tr.train_step(images[:k], poses12[:k], hists[:k]),
+                                 reps=DM_STEP_REPS) for k in (2, 4)}
+    batched = {k: {"step_ms": v, "images_per_s": int(k[2:]) * 1e3 / v}
+               for k, v in batched.items()}
+    log(f"[dm] batched steps (CUDA events; K=1 {1e3 / step['step_ms']:.2f} images/s): "
+        f"{json.dumps(batched)}")
+
+    # bf16 (the run's precision) against float32 on the card, and the batched
+    # step against the per-image step at float32, at full width
+    f32 = DMTrainer(cfg.replace(feature_precision="fp32"), scene, tr.nerf, device=device)
+    view = (scene.train.images[0], scene.train.poses[0].reshape(1, 12), scene.train.hists[0])
+    bf = DMTrainer(cfg, scene, tr.nerf, device=device)
+    with torch.no_grad():
+        pose_bf = bf.predict_poses(bf.params, images[:1], torch.bfloat16)
+        pose_32 = f32.predict_poses(f32.params, images[:1])
+    loss_bf, _, g_bf, _ = parity.dm_loss_and_grads(bf, *view)
+    loss_32, _, g_32, _ = parity.dm_loss_and_grads(f32, *view)
+    a, b = g_32["fc_pose/b"].astype(np.float64), g_bf["fc_pose/b"].astype(np.float64)
+    pose_err = float((pose_bf - pose_32).abs().max())
+    pose_bar = parity.BF16_POSE * max(float(pose_32.abs().max()), 1.0)
+    bf16 = {"pose_err": pose_err, "pose_bar": pose_bar, "loss": [loss_bf, loss_32],
+            "loss_diff": loss_bf - loss_32,
+            "dpose_cos": float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))}
+    log(f"[dm] bf16 against float32 on the card (train view 0): {json.dumps(bf16)}")
+    if not (pose_err < pose_bar and np.isfinite([loss_bf, loss_32]).all()):
+        raise SystemExit(f"stage 3's bf16 pose does not track float32: {bf16}")
+    with torch.no_grad(), conv_precision(torch.float32):
+        args = (f32.params, tr.nerf.params, f32.feat_params)
+        _, (lk, _) = f32.batched_loss_fn(*args, images[:2], poses12[:2], hists[:2])
+        l1 = [float(f32.loss_fn(*args, images[i], poses12[i:i + 1], hists[i])[0])
+              for i in range(2)]
+    k2 = {"batched": lk.tolist(), "per_image": l1,
+          "err": float(np.abs(lk.cpu().numpy() - np.array(l1)).max())}
+    log(f"[dm] batched step (K=2, float32) against the per-image step: {json.dumps(k2)}")
+    if not k2["err"] < 5e-5:
+        raise SystemExit(f"the batched step's losses miss the per-image step's: {k2}")
+    del tr, f32, bf, trainers[:]
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, epochs=rec["epochs"], losses=losses,
+                steps_per_s=steps_per_s, eval_epoch_s=rec["eval_epoch_s"], evals=rec["evals"],
+                first_dpose=dpose.tolist(), reloaded_val=reloaded, step=step,
+                profile=profiled, ops=ops, peak_memory_gb=memory, batched_steps=batched,
+                bf16=bf16, batched_parity=k2, parity=dm_parity(device))
 
 
 def main() -> int:
@@ -1359,7 +1792,9 @@ def main() -> int:
     probe = timed(phase_probe, device)
     cases += probe["cases"]
     train_result = timed(phase_train, device)
-    feature = timed(phase_feature, device)
+    with tempfile.TemporaryDirectory() as handoff:
+        feature = timed(phase_feature, device, handoff)
+        dm = timed(phase_dm, device, feature["best_ckpt"])
     cases += feature["cases"]
 
     # each kernel's row: its case on the main path it was ported for, and
@@ -1381,7 +1816,8 @@ def main() -> int:
                                           for k in REPLACES},
                      "probe": {**empty, **probe["launches"]},
                      "train": train_result["launches"],
-                     "feature": feature["launches"]}
+                     "feature": feature["launches"],
+                     "dm": dm["launches"]}
     kernels = []
     for name, (asset, sched, path) in main_case.items():
         c = next(c for c in cases if c["name"] == name and c["asset"] == asset
@@ -1403,6 +1839,7 @@ def main() -> int:
                               for W, o in probe["widths"].items()}}))
     log(json.dumps({"train": train_result}))
     log(json.dumps({"feature": {k: v for k, v in feature.items() if k != "cases"}}))
+    log(json.dumps({"dm": dm}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

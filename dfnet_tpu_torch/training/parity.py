@@ -21,6 +21,20 @@ chip_smoke.py and the tests.
     against CPU: poses within 1e-4 of
     max(|pose|, 1), the float32 forwards' bar against the JAX package
     (tests/test_torch_port_dfnet.py).
+  - stage 3 (the DM step, DMTrainer.loss_fn), float32: the same loss and
+    gradient bars on F, card against CPU on the encoder and pose-head
+    leaves of GOLDEN_LEAVES (DM_LEAVES), port against the JAX package on
+    every leaf; F runs without its adapt branch, so those leaves get no
+    gradient and must stay below ZERO_GRAD on both sides. dL/dpose is
+    fc_pose/b's gradient (batch 1: the gradient of the 12 predicted pose
+    entries, before the SVD projection). They are compared where F's
+    predicted rotation block is near a rotation, with distinct singular
+    values (dm_pose_bias), as a trained stage-2 net predicts. Card against
+    CPU, those bars hold with the card rendering at the CPU's predicted
+    pose (dm_loss_and_grads' render_pose); at its own pose, whose entries
+    differ from the CPU's by float32 rounding, dL/dpose is held within
+    DM_DPOSE_OWN_POSE of its scale, a bar set from the float64 gradient's
+    largest move at such pose steps (scripts/dm_diag.py).
   - bf16 against float32 (the JAX package's tests/test_feature_bf16.py):
     pose within 5% of max(|pose|, 1); BN-normalised feature maps within
     0.08 mean absolute difference; the pose loss's gradient cosine above
@@ -31,12 +45,23 @@ chip_smoke.py and the tests.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from dfnet_tpu_torch.models.dfnet import DFNetConfig, conv_precision, dfnet_forward
+from dfnet_tpu_torch.config import parse_args
+from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+from dfnet_tpu_torch.models.dfnet import (
+    DFNetConfig,
+    conv_precision,
+    dfnet_forward,
+    dfnet_params_to_jax,
+    init_dfnet_params,
+)
+from dfnet_tpu_torch.models.factory import create_nerfh
+from dfnet_tpu_torch.training.checkpoints import save_pytree
 from dfnet_tpu_torch.training.nerf_trainer import named_leaves
 
 LOSS_TOL = 2e-4
@@ -48,6 +73,16 @@ GOLDEN_LEAVES = ("encoder/conv1_1/w", "encoder/conv5_3/w", "encoder/conv5_3/b",
                  "adapt/0/conv1/w", "adapt/0/conv2/w", "adapt/2/conv1/w",
                  "adapt/2/conv2/w", "adapt/2/conv2/b", "fc_pose/w", "fc_pose/b")
 EVAL_POSE_TOL = 1e-4
+DM_LEAVES = tuple(k for k in GOLDEN_LEAVES if not k.startswith("adapt/"))
+DM_POSE_SV = (1.15, 1.0, 0.85)
+DM_DPOSE_OWN_POSE = 2e-2
+# the DM step's NeRF and DFNet flags of the CPU parity tests
+# (tests/test_torch_port_dm.py) and of the card-against-CPU checks
+DM_FLAGS = ["--NeRFH", "--encode_hist", "--dataset_type", "synthetic", "--netdepth", "2",
+            "--netwidth", "32", "--netdepth_fine", "2", "--netwidth_fine", "32",
+            "--N_samples", "10", "--N_importance", "10", "--N_rand", "128",
+            "--expname", "nerfh", "--model_name", "dfnetdm", "--DFNet", "--svd_reg",
+            "--feature_precision", "fp32"]
 
 BF16_POSE = 0.05
 BF16_FEATURE = 0.08
@@ -103,6 +138,99 @@ def golden_agreement(loss: float, grads: Dict[str, np.ndarray], ref_loss: float,
     worst = max(errs, key=lambda k: errs[k] / GRAD_TOL_LEAF.get(k, GRAD_TOL))
     return bool(ok), {"loss_err": abs(loss - ref_loss), "worst": worst,
                       "grad_err": errs}
+
+
+def dm_pose_bias(pose: np.ndarray) -> np.ndarray:
+    """A fc_pose/b (12,) that centres F's predictions on the (3, 4) `pose`,
+    its rotation block scaled to singular values DM_POSE_SV. The SVD
+    projection's backward has terms in 1/(s_i + s_j) and 1/(s_i - s_j): a
+    random init's block has singular values near 0.05, where it magnifies
+    float32 rounding some thirty times."""
+    pose = np.asarray(pose, np.float64)
+    rot = pose[:, :3] @ np.diag(DM_POSE_SV)
+    return np.concatenate([rot, pose[:, 3:]], 1).reshape(12).astype(np.float32)
+
+
+DM_WORLD = {"pose_scale": 0.8, "pose_scale2": 1.25, "move_all_cam_vec": [0.1, -0.05, 0.2]}
+
+
+def dm_trainer(base: str, device, *flags):
+    """A DMTrainer at DM_FLAGS (plus `flags`) on the 48x64 synthetic scene
+    of 6 train and 3 val views under DM_WORLD, from seeded port inits that
+    the first call writes under `base`: a NeRF-H checkpoint, and a DFNet
+    one whose pose head is biased by dm_pose_bias. The same params on
+    every device."""
+    from dfnet_tpu_torch.training.dm_trainer import DMTrainer
+    from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
+
+    sc = make_synthetic_scene(n_train=6, n_val=3, H=48, W=64, focal=60.0, seed=0)
+    sc.world_setup = DM_WORLD
+    ckpt = os.path.join(base, "dfnet.npz")
+    argv = DM_FLAGS + ["--basedir", base, "--pretrain_model_path", ckpt, *flags]
+    if not os.path.exists(ckpt):
+        _, nerf = create_nerfh(parse_args(argv), torch.Generator().manual_seed(0))
+        save_pytree(os.path.join(base, "nerfh", "000005.npz"), {"params": nerf})
+        params, state = init_dfnet_params(torch.Generator().manual_seed(1))
+        params["fc_pose"]["b"] = torch.tensor(dm_pose_bias(sc.train.poses[0]))
+        params, state = dfnet_params_to_jax(params, state)
+        save_pytree(ckpt, {"params": params, "state": state})
+    cfg = parse_args(argv + ["--device", str(device)], stage="dm")
+    nerf = FrozenNeRF.from_experiment(cfg.replace(tinyimg=True, tinyscale=4.0), sc.hwf,
+                                      sc.near, sc.far, sc.world_setup)
+    return DMTrainer(cfg, sc, nerf)
+
+
+def dm_loss_and_grads(trainer, image, pose12, hist,
+                      render_pose=None) -> Tuple[float, float, Dict, np.ndarray]:
+    """The DM trainer's (loss, psnr) on one image (H, W, 3) with its
+    (1, 12) pose and hist, moved to its device, the gradient of every leaf
+    of F by path as numpy (zeros where autograd gives none), and F's
+    predicted (3, 4) pose; the params are left as they were.
+
+    render_pose: a (3, 4) value to render at in place of the predicted
+    pose, the gradient still flowing into F through the predicted one. The
+    DM gradient is not smooth in the pose: a float64 run's dL/dpose moves
+    by up to 0.8% of its scale when the pose moves by 1e-7, below float32's
+    rounding of it (scripts/dm_diag.py), so two devices' float32 steps are
+    compared at one render pose."""
+    args = [torch.as_tensor(a).to(trainer.device) for a in (image, pose12, hist)]
+    seen, render = {}, trainer.render
+
+    def pinned(params, poses, hists):
+        seen["pose"] = poses.detach()[0].cpu().numpy()
+        if render_pose is not None:
+            pin = torch.as_tensor(render_pose, dtype=poses.dtype, device=poses.device)
+            poses = poses + (pin - poses).detach()
+        return render(params, poses, hists)
+
+    for _, t in trainer._named:
+        t.grad = None
+    trainer.render = pinned
+    try:
+        with conv_precision(trainer.compute_dtype):
+            loss, psnr = trainer.loss_fn(trainer.params, trainer.nerf.params,
+                                         trainer.feat_params, *args)
+            loss.backward()
+    finally:
+        trainer.render = render
+    grads = {k: (t.grad if t.grad is not None else torch.zeros_like(t)).cpu().numpy()
+             for k, t in trainer._named}
+    for _, t in trainer._named:
+        t.grad = None
+    return float(loss.detach()), float(psnr.detach()), grads, seen["pose"]
+
+
+def dm_agreement(loss: float, grads: Dict[str, np.ndarray], ref_loss: float,
+                 ref_grads: Dict[str, np.ndarray], leaves=None) -> Tuple[bool, Dict]:
+    """The float32 bars of a DM step on `leaves` (default: every leaf),
+    and F's adapt leaves below ZERO_GRAD on both sides: (ok, info), info
+    as golden_agreement's plus "adapt_max" (both sides' largest entry)."""
+    adapt = [k for k in ref_grads if k.startswith("adapt/")]
+    ok, info = golden_agreement(loss, grads, ref_loss, ref_grads,
+                                leaves=(list(leaves) + adapt) if leaves else None)
+    info["adapt_max"] = max(float(np.abs(g[k]).max()) for g in (grads, ref_grads)
+                            for k in adapt)
+    return bool(ok and info["adapt_max"] < ZERO_GRAD), info
 
 
 def eval_agreement(pose: torch.Tensor, ref: torch.Tensor) -> Tuple[bool, float]:

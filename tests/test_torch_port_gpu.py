@@ -648,3 +648,105 @@ def test_feature_prerender_and_rvs_launch_the_sweeps(cuda, tmp_path):
         views = run()
         assert views.shape == (4, 48, 64, 3) and np.isfinite(views).all()
         assert nk.LAUNCHES["coarse_sigma_t"] > 0 and nk.LAUNCHES["fine_raw_t"] > 0
+
+
+# ------------------------------------------------------------------ stage 3
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", ["0.2,0.3,0.5", "0,0,1"])
+def test_dm_float32_on_the_card_matches_the_cpu(cuda, tmp_path, w):
+    """The DM step, card against CPU at float32: F's predicted pose under
+    parity.EVAL_POSE_TOL; then, rendering at the CPU's predicted pose
+    (parity.dm_loss_and_grads' render_pose: the DM gradient is not smooth
+    in the pose below float32's rounding of it), the loss, dL/dpose and F's
+    gradients under parity's bars (DM_LEAVES; the adapt leaves get no
+    gradient on either side), with PyTorch's TF32 default left on for
+    cuDNN: the float32 step keeps its convs and matmuls IEEE itself. At
+    the card's own predicted pose, dL/dpose within DM_DPOSE_OWN_POSE of its
+    scale."""
+    from dfnet_tpu_torch.training import parity
+
+    cpu = parity.dm_trainer(str(tmp_path), "cpu", "--combine_loss_w", w)
+    sc = cpu.scene
+    view = (sc.train.images[1], sc.train.poses[1].reshape(1, 12), sc.train.hists[1])
+    want = parity.dm_loss_and_grads(cpu, *view)
+    torch.backends.cudnn.allow_tf32 = True
+    card = parity.dm_trainer(str(tmp_path), cuda, "--combine_loss_w", w)
+    got = parity.dm_loss_and_grads(card, *view, render_pose=want[3])
+    own = parity.dm_loss_and_grads(card, *view)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.enabled
+    ok, err = parity.eval_agreement(torch.tensor(got[3]), torch.tensor(want[3]))
+    assert ok, err
+    ok, info = parity.dm_agreement(got[0], got[2], want[0], want[2], leaves=parity.DM_LEAVES)
+    assert ok, info
+    dp, ref = got[2]["fc_pose/b"], want[2]["fc_pose/b"]
+    assert np.abs(ref).max() > 0
+    assert np.abs(dp - ref).max() < parity.GRAD_TOL * np.abs(ref).max()
+    dp_own = own[2]["fc_pose/b"]
+    assert np.abs(dp_own - ref).max() < parity.DM_DPOSE_OWN_POSE * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+def test_dm_bf16_tracks_float32_on_the_card(cuda, tmp_path):
+    """The bf16 DM step against float32 on the card: the predicted pose
+    under parity's bf16 pose bar, both losses and dL/dpose finite."""
+    from dfnet_tpu_torch.training import parity
+
+    f32 = parity.dm_trainer(str(tmp_path), cuda)
+    bf = parity.dm_trainer(str(tmp_path), cuda, "--feature_precision", "bf16")
+    sc = f32.scene
+    view = (sc.train.images[1], sc.train.poses[1].reshape(1, 12), sc.train.hists[1])
+    image = torch.tensor(view[0], device=cuda)[None]
+    with torch.no_grad():
+        p32 = f32.predict_poses(f32.params, image)
+        pbf = bf.predict_poses(bf.params, image, torch.bfloat16)
+    assert float((pbf - p32).abs().max()) < parity.BF16_POSE * max(float(p32.abs().max()), 1)
+    for tr in (f32, bf):
+        loss, _, grads, _ = parity.dm_loss_and_grads(tr, *view)
+        assert np.isfinite(loss) and np.isfinite(grads["fc_pose/b"]).all()
+
+
+@pytest.mark.gpu
+def test_dm_batched_step_matches_per_image_step_on_the_card(cuda, tmp_path):
+    """K=2 against the per-image loss at float32 on the card, each loss
+    within 5e-5 (the bar of JAX's test_dm_batched_step_parity)."""
+    from dfnet_tpu_torch.models.dfnet import conv_precision
+    from dfnet_tpu_torch.training import parity
+
+    tr = parity.dm_trainer(str(tmp_path), cuda, "--combine_loss_w", "0.2,0.3,0.5")
+    images, poses12, hists = tr.train_data
+    args = (tr.params, tr.nerf.params, tr.feat_params)
+    with torch.no_grad(), conv_precision(torch.float32):
+        _, (losses, _) = tr.batched_loss_fn(*args, images[:2], poses12[:2], hists[:2])
+        for i in range(2):
+            li, _ = tr.loss_fn(*args, images[i], poses12[i:i + 1], hists[i])
+            assert abs(float(li) - float(losses[i])) < 5e-5
+
+
+@pytest.mark.gpu
+def test_dm_epoch_launches_no_kernel(cuda, tmp_path):
+    """A DM train epoch and eval_epoch on the trained asset (whose no-grad
+    renders would take the kernels) launch none of the seven kernels: the
+    pose gradient needs the plain renderer."""
+    import os
+
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.training import parity
+    from dfnet_tpu_torch.training.checkpoints import load_pytree, save_pytree
+    from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
+
+    tr = parity.dm_trainer(str(tmp_path / "small"), cuda)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tree, _ = load_pytree(os.path.join(root, "assets", "nerfh_synthetic_301.npz"))
+    save_pytree(str(tmp_path / "nerfh" / "000301.npz"), {"params": tree})
+    sc = tr.scene
+    tr.nerf = FrozenNeRF.from_experiment(
+        parse_args(["--basedir", str(tmp_path), "--expname", "nerfh", "--NeRFH",
+                    "--encode_hist", "--tinyimg", "--tinyscale", "4", "--device", "cuda"]),
+        sc.hwf, sc.near, sc.far, sc.world_setup)
+    assert tr.nerf.uses_fast_render
+    nk.reset_launches()
+    loss, psnr = tr.train_epoch(np.random.default_rng(0))
+    val = tr.eval_epoch()
+    assert np.isfinite([loss, psnr, *val]).all()
+    assert not any(nk.LAUNCHES.values()), nk.LAUNCHES
