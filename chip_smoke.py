@@ -109,6 +109,26 @@ Phases (any failure exits non-zero):
                torch.profiler, its operations and bounds,
                steps/s, eval_epoch s, the median errors, peak memory at
                K=1, 2 and 4 and the batched steps' images/s.
+  11. sevenscenes — the three shipped configs (configs/config_nerfh.txt,
+               config_dfnet.txt, config_dfnetdm.txt) through the port's three
+               CLIs from an on-disk 7-Scenes replica (heads layout, two
+               sequences of SEVEN_FRAMES 480x640 frames written by
+               dfnet_tpu_torch/scripts/replica.py, PNGs read by
+               data/png.py): stage 1 at df 4 (40 train / 4 val views), a
+               --render_test at the seeded init and after epochs 0-5; stage 2
+               at df 2 (40 train / 200 val) from stage 1's NeRF, once as
+               shipped and once with --prefetch 2; stage 3 finetune_unlabel
+               (40 views of the test sequence / 200 val) from stage 2's best
+               checkpoint. Every scene a CLI loads must be the writer's
+               (images and hists bit for bit, poses within 1e-6, gt_idx);
+               stage 1 must launch coarse_sigma_t, fine_raw_t and raw_bwd_t,
+               stage 2 coarse_sigma_t and fine_raw_t, stage 3 none; losses
+               finite, stage 1's falling and its val PSNR 1 dB over the
+               init's; the --prefetch run's losses within 1e-6. `[sevenscenes]`
+               lines give the replica write s, the PNG decode ms a frame
+               (filter 0 and Paeth), whether PIL imports, load s per split,
+               stage-1 steps/s and val PSNR, stage-2 and stage-3 epoch s and
+               the median errors.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.
 """
@@ -163,6 +183,13 @@ DM_TRAIN, DM_VAL = 40, 20
 DM_EPOCHS = 2
 DM_STEP_REPS = 10
 DM_PARITY_VIEWS = (1, 3)
+# phase_sevenscenes: a 7-Scenes replica in the heads layout at the
+# dataset's 480x640 frames, two sequences of SEVEN_FRAMES (scripts/replica.py)
+SEVEN_FRAMES = 200
+SEVEN_STAGE1_EPOCHS = 5     # stage 1: epochs 0-5, a checkpoint at 5
+SEVEN_EPOCHS = 1            # stages 2 and 3: epochs 0-1
+SEVEN_PSNR_GAIN_DB = 1.0    # --render_test val PSNR over the seeded init's
+SEVEN_PREFETCH_TOL = 1e-6   # stage-2 epoch losses with and without --prefetch 2
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_INT8 = 1979e12         # H100 SXM dense int8 OP/s (data sheet)
 PEAK_F32 = 67e12            # H100 SXM float32 FLOP/s outside the tensor cores
@@ -1752,6 +1779,253 @@ def phase_dm(device, stage2_ckpt: str):
                 bf16=bf16, batched_parity=k2, parity=dm_parity(device))
 
 
+def seven_expected(rec: dict, seq: int, skip: int, df: float) -> dict:
+    """What the loader must return for a replica sequence at (skip, df):
+    the writer's uint8 frames / 255 area-downscaled, their histograms, the
+    sphere poses and the frame indices."""
+    from dfnet_tpu_torch.data.color import downscale_area, luminance_histogram
+
+    images = np.stack([downscale_area((f / 255.0).astype(np.float32), df)
+                       for f in rec["frames"][seq][::skip]])
+    return {"images": images, "poses": rec["poses"][seq][::skip],
+            "hists": np.stack([luminance_histogram(im) for im in images]),
+            "gt_idx": np.arange(0, len(rec["frames"][seq]), skip)}
+
+
+def check_seven_scene(name: str, scene, want_train: dict, want_val: dict) -> dict:
+    """Hold a scene a CLI loaded to the writer's: images and hists equal,
+    poses within 1e-6 of the sphere poses, gt_idx equal. Raises otherwise."""
+    out = {}
+    for part, split, want in (("train", scene.train, want_train), ("val", scene.val, want_val)):
+        pose_err = float(np.abs(split.poses - want["poses"]).max())
+        ok = (split.images.shape == want["images"].shape
+              and np.array_equal(split.images, want["images"])
+              and np.array_equal(split.hists, want["hists"])
+              and np.array_equal(split.gt_idx, want["gt_idx"]) and pose_err <= 1e-6)
+        out[part] = {"views": len(split), "hw": list(split.images.shape[1:3]),
+                     "pose_err": pose_err}
+        if not ok:
+            raise SystemExit(f"[sevenscenes] {name}: the {part} split the CLI loaded is not "
+                             f"the replica's: {out[part]}, gt_idx {split.gt_idx[:6]}...")
+    return out
+
+
+def phase_sevenscenes(device):
+    """The three shipped configs (configs/config_nerfh.txt, config_dfnet.txt,
+    config_dfnetdm.txt) through the port's CLIs from an on-disk 7-Scenes
+    replica (scripts/replica.py: the heads layout, two sequences of
+    SEVEN_FRAMES 480x640 frames of the blob field rendered on the card at
+    focal 585; seq-02 train, seq-01 test), overriding only --datadir,
+    --basedir, the epochs (and stage 1's --i_weights, so that its last
+    epoch leaves a checkpoint) and the stage links. Stage 1: --render_test
+    at the seeded init, epochs 0-SEVEN_STAGE1_EPOCHS, --render_test. Stage 2:
+    epochs 0-SEVEN_EPOCHS from stage 1's NeRF, once as shipped and once with
+    --prefetch 2 (cuDNN deterministic for both). Stage 3 (finetune_unlabel):
+    epochs 0-SEVEN_EPOCHS from stage 2's best checkpoint. Checks: every scene
+    a CLI loads is the writer's (check_seven_scene); stage 1 launches
+    coarse_sigma_t, fine_raw_t and raw_bwd_t, stage 2 coarse_sigma_t and
+    fine_raw_t, stage 3 none; every epoch's losses finite, stage 1's train
+    loss falls, its val PSNR at least SEVEN_PSNR_GAIN_DB over the init's;
+    stage 2's epoch losses with and without --prefetch within
+    SEVEN_PREFETCH_TOL. Figures: replica write s, PNG decode ms a frame
+    (filter 0 and Paeth), whether PIL imports, load s per split, stage-1
+    steps/s and val PSNR, stage-2 and stage-3 epoch s, median pose errors."""
+    import torch
+
+    from dfnet_tpu_torch.cli import dm as dm_cli
+    from dfnet_tpu_torch.cli import feature as feature_cli
+    from dfnet_tpu_torch.cli import nerf as nerf_cli
+    from dfnet_tpu_torch.data import loader, png
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.scripts.replica import write_seven_scenes_replica
+    from dfnet_tpu_torch.training.dm_trainer import DMTrainer
+    from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    root = ROOT / "build" / "sevenscenes"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    rec = write_seven_scenes_replica(str(root / "data"), n_frames=SEVEN_FRAMES, device=device)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    frame = root / "data" / "deepslam_data" / "7Scenes" / "heads" / "seq-01"
+    frame = str(frame / "frame-000000.color.png")
+    paeth = str(root / "paeth.png")
+    with open(paeth, "wb") as fh:
+        fh.write(png.encode_png(rec["frames"][1][0], 4))
+    decode = {}
+    for name, path, reps in (("filter0", frame, 20), ("paeth", paeth, 3)):
+        if not np.array_equal(png.read_png(path), rec["frames"][1][0]):
+            raise SystemExit(f"[sevenscenes] {path} does not decode to the frame written")
+        t = time.perf_counter()
+        for _ in range(reps):
+            png.read_png(path)
+        decode[name] = {"ms": (time.perf_counter() - t) / reps * 1e3,
+                        "bytes": os.path.getsize(path)}
+    pil = subprocess.run([sys.executable, "-c", "import PIL"], capture_output=True).returncode == 0
+    log(f"[sevenscenes] card: {smi.strip()}")
+    log(f"[sevenscenes] replica: {2 * SEVEN_FRAMES} frames of 480x640 written in {write_s:.3f} "
+        f"s; PNG decode (data/png.py) ms a frame {json.dumps(decode)}; PIL imports: {pil}")
+
+    loads, scenes, epochs = [], {}, {"feature": [], "dm": []}
+    orig_split = loader.load_seven_scenes_split
+
+    def timed_split(*a, **k):
+        t = time.perf_counter()
+        out = orig_split(*a, **k)
+        loads.append({"train": k["train"], "skip": k["skip"], "df": k["df"],
+                      "views": len(out), "s": time.perf_counter() - t})
+        return out
+
+    def recording(cli, key):
+        orig = cli.load_scene
+
+        def load(cfg, stage="nerf"):
+            scenes.setdefault(key, []).append(orig(cfg, stage=stage))
+            return scenes[key][-1]
+        return orig, load
+
+    def timing(cls, key):
+        orig = cls.train_epoch
+
+        def run(self, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(self, *a)
+            torch.cuda.synchronize()
+            epochs[key].append(time.perf_counter() - t)
+            return out
+        return orig, run
+
+    def leg(fn):
+        nk.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(nk.LAUNCHES)
+
+    cfgdir = ROOT / "configs"
+    base, base_b = root / "logs", root / "logs_prefetch"
+    link = ["--datadir", rec["datadir"], "--device", str(device)]
+    patches = [(loader, "load_seven_scenes_split", timed_split),
+               (nerf_cli, "load_scene", recording(nerf_cli, "nerf")[1]),
+               (feature_cli, "load_scene", recording(feature_cli, "feature")[1]),
+               (dm_cli, "load_scene", recording(dm_cli, "dm")[1]),
+               (FeatureTrainer, "train_epoch", timing(FeatureTrainer, "feature")[1]),
+               (DMTrainer, "train_epoch", timing(DMTrainer, "dm")[1])]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for obj, name, f in patches:
+            setattr(obj, name, f)
+        stage1 = ["--config", str(cfgdir / "config_nerfh.txt"), "--basedir", str(base)] + link
+        (psnr_init, l_init) = leg(lambda: nerf_cli.train(stage1 + ["--render_test"]))
+        (_, l_train) = leg(lambda: nerf_cli.train(
+            stage1 + ["--epochs", str(SEVEN_STAGE1_EPOCHS),
+                      "--i_weights", str(SEVEN_STAGE1_EPOCHS)]))
+        (psnr, l_render) = leg(lambda: nerf_cli.train(stage1 + ["--render_test"]))
+        shutil.copytree(base / "nerfh", base_b / "nerfh")
+        torch.backends.cudnn.deterministic = True
+        stage2 = ["--config", str(cfgdir / "config_dfnet.txt"), "--epochs",
+                  str(SEVEN_EPOCHS)] + link
+        (err2, l_feature) = leg(lambda: feature_cli.train(stage2 + ["--basedir", str(base)]))
+        (err2b, l_feature_b) = leg(lambda: feature_cli.train(
+            stage2 + ["--basedir", str(base_b), "--prefetch", "2"]))
+        torch.backends.cudnn.deterministic = deterministic
+        ckpt = sorted((base / "dfnet").glob("checkpoint-*.npz"))[-1]
+        (err3, l_dm) = leg(lambda: dm_cli.main(
+            ["--config", str(cfgdir / "config_dfnetdm.txt"), "--basedir", str(base),
+             "--epochs", str(SEVEN_EPOCHS), "--pretrain_model_path", str(ckpt),
+             "--pretrain_featurenet_path", str(ckpt)] + link))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for obj, name, f in saved:
+            setattr(obj, name, f)
+
+    def metrics(path):
+        with open(path) as fh:
+            return [json.loads(line) for line in fh]
+
+    m1 = metrics(base / "nerfh" / "metrics.jsonl")
+    m2, m2b = metrics(base / "dfnet" / "metrics.jsonl"), metrics(base_b / "dfnet" / "metrics.jsonl")
+    m3 = metrics(base / "dfnetdm" / "metrics.jsonl")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # the scenes each CLI loaded against the writer's
+    e1 = (seven_expected(rec, 2, 5, 4.0), seven_expected(rec, 1, 50, 4.0))
+    e2 = (seven_expected(rec, 2, 5, 2.0), seven_expected(rec, 1, 1, 2.0))
+    e3 = (seven_expected(rec, 1, 5, 2.0), e2[1])
+    held = {}
+    for key, want in (("nerf", e1), ("feature", e2), ("dm", e3)):
+        for i, sc in enumerate(scenes[key]):
+            held[f"{key}[{i}]"] = check_seven_scene(f"{key} load {i}", sc, *want)
+    if len(scenes["nerf"]) != 3 or len(scenes["feature"]) != 2 or len(scenes["dm"]) != 1:
+        raise SystemExit(f"[sevenscenes] the CLIs loaded {[(k, len(v)) for k, v in scenes.items()]}"
+                         " scenes, not 3, 2 and 1")
+    log(f"[sevenscenes] scenes the CLIs loaded equal the writer's (images and hists bit for "
+        f"bit, poses within 1e-6 of the sphere poses, gt_idx): {json.dumps(held)}; "
+        f"stage 3 (finetune_unlabel) train gt_idx = seq-01's frames 0, 5, ..., "
+        f"{scenes['dm'][0].train.gt_idx[-1]}")
+    log(f"[sevenscenes] load s per split: {json.dumps(loads)}")
+
+    # stage 1
+    leg1 = {k: l_init[k] + l_train[k] + l_render[k] for k in l_train}
+    steps = len(scenes["nerf"][1].train)
+    losses1 = [m["loss"] for m in m1]
+    steps_per_s = steps * SEVEN_STAGE1_EPOCHS / sum(m["epoch_s"] for m in m1[1:])
+    sc1, sc2 = scenes["nerf"][1], scenes["feature"][0]
+    log(f"[sevenscenes] stage 1 (config_nerfh.txt, df 4 -> {sc1.H}x{sc1.W}, {steps} train / "
+        f"{len(sc1.val)} val views): epochs 0-{SEVEN_STAGE1_EPOCHS} losses "
+        f"{losses1}, {steps_per_s:.3f} steps/s over epochs 1-{SEVEN_STAGE1_EPOCHS} "
+        f"({steps} steps each); --render_test val PSNR {psnr!r} dB against {psnr_init!r} at "
+        f"the seeded init; launches: init render {l_init}, train {l_train}, render {l_render}")
+    if not all(leg1[k] > 0 for k in ("coarse_sigma_t", "fine_raw_t", "raw_bwd_t")):
+        raise SystemExit(f"[sevenscenes] stage 1 did not launch its three kernels: {leg1}")
+    if not (np.all(np.isfinite(losses1)) and losses1[-1] < losses1[0]):
+        raise SystemExit(f"[sevenscenes] stage 1's train loss is not finite and falling: {losses1}")
+    if not psnr >= psnr_init + SEVEN_PSNR_GAIN_DB:
+        raise SystemExit(f"[sevenscenes] stage 1's val PSNR {psnr} is not {SEVEN_PSNR_GAIN_DB} "
+                         f"dB over the init's {psnr_init}")
+
+    # stage 2
+    losses2 = [(m["train_loss"], m["val_loss"]) for m in m2]
+    losses2b = [(m["train_loss"], m["val_loss"]) for m in m2b]
+    gap = float(np.abs(np.array(losses2) - np.array(losses2b)).max())
+    log(f"[sevenscenes] stage 2 (config_dfnet.txt, df 2 -> {sc2.H}x{sc2.W}, "
+        f"{len(sc2.train)} train / {len(sc2.val)} val): "
+        f"epochs (train loss, val MSE) {losses2}; with --prefetch 2 {losses2b} (largest gap "
+        f"{gap!r}); epoch s {[round(t, 4) for t in epochs['feature']]} (runs without, then "
+        f"with --prefetch); median error [m, deg] {np.asarray(err2[0]).tolist()} / "
+        f"{np.asarray(err2b[0]).tolist()}; launches {l_feature} / {l_feature_b}")
+    if not all(l_feature[k] > 0 for k in ("coarse_sigma_t", "fine_raw_t")):
+        raise SystemExit(f"[sevenscenes] stage 2 did not launch both sweeps: {l_feature}")
+    if len(losses2) != SEVEN_EPOCHS + 1 or not np.all(np.isfinite(losses2 + losses2b)):
+        raise SystemExit(f"[sevenscenes] stage 2's losses are not finite: {losses2}, {losses2b}")
+    if not gap <= SEVEN_PREFETCH_TOL:
+        raise SystemExit(f"[sevenscenes] --prefetch 2 changed stage 2's losses by {gap}")
+
+    # stage 3
+    losses3 = [(m["train_loss"], m["val_loss"], m["train_psnr"], m["val_psnr"]) for m in m3]
+    log(f"[sevenscenes] stage 3 (config_dfnetdm.txt, finetune_unlabel: "
+        f"{len(scenes['dm'][0].train)} train views of seq-01 / {len(scenes['dm'][0].val)} val, "
+        f"from {ckpt.name}): epochs (train loss, val pose MSE, train PSNR, val PSNR) "
+        f"{losses3}; epoch s {[round(t, 4) for t in epochs['dm']]}; median error [m, deg] "
+        f"{np.asarray(err3[0]).tolist()}; launches {l_dm}")
+    if any(l_dm.values()):
+        raise SystemExit(f"[sevenscenes] stage 3 launched kernels: {l_dm}")
+    if len(losses3) != SEVEN_EPOCHS + 1 or not np.all(np.isfinite(losses3)):
+        raise SystemExit(f"[sevenscenes] stage 3's losses are not finite: {losses3}")
+    launches = {k: leg1[k] + l_feature[k] + l_feature_b[k] + l_dm[k] for k in leg1}
+    return dict(launches=launches, write_s=write_s, decode=decode, pil=pil, loads=loads,
+                stage1=dict(losses=losses1, steps_per_s=steps_per_s, val_psnr=psnr,
+                            val_psnr_init=psnr_init, launches=leg1),
+                stage2=dict(losses=losses2, losses_prefetch=losses2b, prefetch_gap=gap,
+                            epoch_s=epochs["feature"], median=np.asarray(err2[0]).tolist(),
+                            launches=l_feature),
+                stage3=dict(losses=losses3, epoch_s=epochs["dm"],
+                            median=np.asarray(err3[0]).tolist(), launches=l_dm))
+
+
 def main() -> int:
     import torch
 
@@ -1795,6 +2069,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as handoff:
         feature = timed(phase_feature, device, handoff)
         dm = timed(phase_dm, device, feature["best_ckpt"])
+    seven = timed(phase_sevenscenes, device)
     cases += feature["cases"]
 
     # each kernel's row: its case on the main path it was ported for, and
@@ -1817,7 +2092,8 @@ def main() -> int:
                      "probe": {**empty, **probe["launches"]},
                      "train": train_result["launches"],
                      "feature": feature["launches"],
-                     "dm": dm["launches"]}
+                     "dm": dm["launches"],
+                     "sevenscenes": seven["launches"]}
     kernels = []
     for name, (asset, sched, path) in main_case.items():
         c = next(c for c in cases if c["name"] == name and c["asset"] == asset
@@ -1840,6 +2116,7 @@ def main() -> int:
     log(json.dumps({"train": train_result}))
     log(json.dumps({"feature": {k: v for k, v in feature.items() if k != "cases"}}))
     log(json.dumps({"dm": dm}))
+    log(json.dumps({"sevenscenes": seven}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

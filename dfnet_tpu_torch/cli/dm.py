@@ -13,9 +13,10 @@ reference hardcodes). Each epoch prints its train and val loss and PSNR,
 appends to <basedir>/<model_name>/metrics.jsonl and hands the val loss
 (or PSNR, under val_on_psnr) to EarlyStopping, which writes the
 checkpoints; every i_eval epochs it prints the val median pose error.
-`--eval` prints the median error of a checkpoint. `--mesh_shape` above
-1, `--prefetch`, `.pt` DFNet and `.tar` NeRF checkpoints come with later
-slices of the port (ROADMAP.md) and raise NotImplementedError.
+`--eval` prints the median error of a checkpoint. `--prefetch N` feeds
+each step from the host through data/prefetch.py. `--mesh_shape` above 1,
+`.pt` DFNet and `.tar` NeRF checkpoints come with later slices of the
+port (ROADMAP.md) and raise NotImplementedError.
 """
 
 import os.path as osp

@@ -12,10 +12,11 @@ every rvs_refresh_rate epochs, and each epoch prints its train and val
 loss, appends to <basedir>/<model_name>/metrics.jsonl and hands the val
 loss to ReduceLROnPlateau and EarlyStopping (which writes the
 checkpoints); every i_eval epochs it prints the val median pose error.
-`--eval` prints the median error of a checkpoint. `--render_feature_only`,
-a `.pt` checkpoint, `--vgg_init_path`, `--prefetch` and a `--mesh_shape`
-above 1 come with later slices of the port (ROADMAP.md) and raise
-NotImplementedError.
+`--eval` prints the median error of a checkpoint. `--prefetch N` keeps
+the train images on the host and copies each batch to the GPU N batches
+ahead of the step (data/prefetch.py). `--render_feature_only`, a `.pt`
+checkpoint, `--vgg_init_path` and a `--mesh_shape` above 1 come with later
+slices of the port (ROADMAP.md) and raise NotImplementedError.
 """
 
 import os
@@ -64,15 +65,15 @@ def train(argv=None):
         return trainer.eval_median_error(scene.val)
 
     dump_args(cfg)
-    targets = trainer.images(scene.train.images)
-    rgbs = trainer.images(trainer.prerender_train_views())
+    targets = trainer.epoch_images(scene.train.images)
+    rgbs = trainer.epoch_images(trainer.prerender_train_views())
     mlog = MetricsLogger(osp.join(cfg.basedir, cfg.model_name or "dfnet"))
     rng = np.random.default_rng(cfg.rng_seed)
     poses_perturb = virtue_view = err = None
     for epoch in range(cfg.epochs + 1):
         if cfg.random_view_synthesis and epoch % cfg.rvs_refresh_rate == 0:
             poses_perturb, virtue_view = trainer.rvs_refresh(rng)
-            virtue_view = trainer.images(virtue_view)
+            virtue_view = trainer.epoch_images(virtue_view)
         train_loss = trainer.train_epoch(targets, rgbs, virtue_view, poses_perturb, rng)
         val_loss = trainer.validate()
         trainer.scheduler.step(val_loss)

@@ -9,8 +9,10 @@ there, and every train step sees static shapes.
 
 from __future__ import annotations
 
+import json
+import os.path as osp
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -47,3 +49,26 @@ class SceneData:
     @property
     def focal(self) -> float:
         return float(self.hwf[2])
+
+
+def load_world_setup(scene_meta_dir: str) -> Dict:
+    """Read per-scene world_setup.json (near/far/pose_scale/pose_scale2/
+    move_all_cam_vec; reference: seven_scenes.py:224-236)."""
+    with open(osp.join(scene_meta_dir, "world_setup.json")) as fh:
+        obj = json.load(fh)
+    return {
+        "near": float(obj["near"]),
+        "far": float(obj["far"]),
+        "pose_scale": float(obj["pose_scale"]),
+        "pose_scale2": float(obj["pose_scale2"]),
+        "move_all_cam_vec": [float(x) for x in obj["move_all_cam_vec"]],
+    }
+
+
+def load_pose_avg_stats(scene_meta_dir: str) -> Optional[np.ndarray]:
+    """The (3, 4) pose average of <dir>/pose_avg_stats.txt, or None when
+    the file is absent."""
+    path = osp.join(scene_meta_dir, "pose_avg_stats.txt")
+    if osp.exists(path):
+        return np.loadtxt(path).reshape(3, 4)
+    return None

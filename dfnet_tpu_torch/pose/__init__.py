@@ -1,6 +1,10 @@
-"""Pose geometry (port of dfnet_tpu/pose, the parts stage 2 uses)."""
+"""Pose geometry (port of dfnet_tpu/pose)."""
 
 from dfnet_tpu_torch.pose.se3 import (
+    average_poses,
+    center_poses,
+    fix_coord_7scenes,
+    fix_coord_cambridge,
     mat_to_quat,
     perturb_rotation,
     perturb_single_render_pose,
@@ -13,6 +17,7 @@ from dfnet_tpu_torch.pose.se3 import (
     rot_theta,
 )
 
-__all__ = ["mat_to_quat", "perturb_rotation", "perturb_single_render_pose",
+__all__ = ["average_poses", "center_poses", "fix_coord_7scenes", "fix_coord_cambridge",
+           "mat_to_quat", "perturb_rotation", "perturb_single_render_pose",
            "pose_errors", "project_rotation_svd", "project_rotation_svd_np",
            "rescale_poses_to_nerf", "rot_phi", "rot_psi", "rot_theta"]

@@ -1,8 +1,8 @@
 """SE(3) pose helpers (port of dfnet_tpu/pose/se3.py): the elementary
 rotations, the Random View Synthesis perturbation, quaternion pose errors,
-the SVD rotation projection, and the world rescale that maps APR-frame
-poses into the NeRF's frame. The averaging, centering and dataset
-coordinate fixes come with the dataset readers (ROADMAP.md, Queue 1).
+the SVD rotation projection, the world rescale that maps APR-frame
+poses into the NeRF's frame, and the pose averaging, centering and
+dataset coordinate fixes of the 7-Scenes and Cambridge readers.
 
 Data-prep and metric functions are numpy, as in the JAX package, so both
 packages draw the same perturbations from the same generator;
@@ -60,6 +60,77 @@ def rot_psi(psi: float) -> np.ndarray:
     m = np.eye(4)
     m[0, 0], m[0, 1], m[1, 0], m[1, 1] = c, -s, s, c
     return m
+
+
+def _normalize(v: np.ndarray) -> np.ndarray:
+    return v / np.linalg.norm(v)
+
+
+# ---------------------------------------------------------------------------
+# pose averaging / centering (float64 numpy, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def average_poses(poses: np.ndarray) -> np.ndarray:
+    """Average camera pose of a set of (N,3,4) c2w matrices.
+
+    center = mean of centers; z = normalized mean z axis; x = y'×z
+    normalized with y' the mean y axis; y = z×x.
+    """
+    center = poses[..., 3].mean(0)
+    z = _normalize(poses[..., 2].mean(0))
+    y_ = poses[..., 1].mean(0)
+    x = _normalize(np.cross(y_, z))
+    y = np.cross(z, x)
+    return np.stack([x, y, z, center], 1)  # (3,4)
+
+
+def center_poses(poses: np.ndarray, pose_avg: np.ndarray | None = None):
+    """Transform all poses into the average pose's frame.
+
+    Returns (poses_centered (N,3,4), pose_avg (3,4)).
+    """
+    if pose_avg is None:
+        pose_avg = average_poses(poses)
+    avg_homo = np.eye(4)
+    avg_homo[:3] = pose_avg
+    last = np.tile(np.array([0.0, 0.0, 0.0, 1.0]), (len(poses), 1, 1))
+    poses_homo = np.concatenate([poses, last], 1)  # (N,4,4)
+    centered = (np.linalg.inv(avg_homo) @ poses_homo)[:, :3]
+    return centered, pose_avg
+
+
+# ---------------------------------------------------------------------------
+# dataset coordinate fixes
+# ---------------------------------------------------------------------------
+
+FLIP_YZ = np.diag([1.0, -1.0, -1.0, 1.0])  # mirror y & z
+
+
+def fix_coord_7scenes(poses: np.ndarray, pose_avg: np.ndarray | None = None) -> np.ndarray:
+    """Center (N,3,4) 7-Scenes poses and flip y/z to the LLFF convention.
+
+    NOTE: the reference applies M@([R|T]@M), a one-sided association it
+    flags as a bug (load_7Scenes.py:321-322), instead of the similarity
+    M@[R|T]@M.T. Every released checkpoint was trained in that frame, so
+    it is kept exactly.
+    """
+    centered, _ = center_poses(poses, pose_avg)
+    last = np.tile(np.array([0.0, 0.0, 0.0, 1.0]), (len(centered), 1, 1))
+    homo = np.concatenate([centered, last], 1)
+    fixed = FLIP_YZ[None] @ (homo @ FLIP_YZ[None])
+    return fixed[:, :3, :4]
+
+
+def fix_coord_cambridge(poses: np.ndarray, pose_avg: np.ndarray | None = None) -> np.ndarray:
+    """Center Cambridge poses, rotate 180° about x, negate the rotation
+    block, then mirror the rotation about the x axis (R' = R @ diag(-1,1,1))."""
+    centered, _ = center_poses(poses, pose_avg)
+    last = np.tile(np.array([0.0, 0.0, 0.0, 1.0]), (len(centered), 1, 1))
+    homo = np.concatenate([centered, last], 1)
+    homo = rot_phi(np.pi)[None] @ homo
+    homo[:, :3, :3] = -homo[:, :3, :3]
+    homo[:, :3, :3] = homo[:, :3, :3] @ np.diag([-1.0, 1.0, 1.0])
+    return homo[:, :3, :4]
 
 
 # ---------------------------------------------------------------------------

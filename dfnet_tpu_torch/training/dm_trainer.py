@@ -23,7 +23,9 @@ metrics render N_rand random rays of each val view at the predicted pose
 (float32 DFNet, no grad), drawn from the trainer's seeded generator.
 
 Images live on the device as (N, H, W, 3) float32, the layout of the
-renders and of the JAX package; DFNet reads them as NCHW views. Float32
+renders and of the JAX package; DFNet reads them as NCHW views. Under
+`--prefetch N` the train split stays on the host, and each step's images,
+poses and hists reach the device through data/prefetch.py, N steps ahead. Float32
 steps run forward and backward inside models/dfnet.py::conv_precision.
 """
 
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from dfnet_tpu_torch.config import Config
+from dfnet_tpu_torch.data.prefetch import PrefetchIterator
 from dfnet_tpu_torch.data.scene import SceneData
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.dfnet import (
@@ -76,10 +79,6 @@ def refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             "a device mesh (multi-GPU training) is not ported yet (ROADMAP.md, "
             "Queue 1 item 10)")
-    if cfg.prefetch > 0:
-        raise NotImplementedError(
-            "--prefetch (the host->device prefetcher) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 8)")
 
 
 class DMTrainer:
@@ -111,7 +110,6 @@ class DMTrainer:
             osp.join(cfg.basedir, cfg.model_name or "dfnetdm"),
             patience=cfg.patience[0], val_on_psnr=cfg.val_on_psnr)
         self.gen = gen if gen is not None else torch.Generator().manual_seed(cfg.rng_seed)
-        self.train_data = self._split(scene.train)
         self.val_data = self._split(scene.val)
 
     @property
@@ -121,6 +119,12 @@ class DMTrainer:
     @property
     def state(self) -> Dict:
         return self.net.state
+
+    @functools.cached_property
+    def train_data(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The train split on the device, built at first use: train_epoch
+        under --prefetch never uses it."""
+        return self._split(self.scene.train)
 
     def images(self, images) -> torch.Tensor:
         """(N, H, W, 3) numpy images -> float32 on the trainer's device."""
@@ -310,16 +314,24 @@ class DMTrainer:
         """One epoch in the order rng.permutation gives: full K-image
         batches, then the n % K tail one image a step, so every image
         trains each epoch. Returns the mean (loss, psnr) over images."""
-        images, poses12, hists = self.train_data
-        order = rng.permutation(len(images))
+        order = rng.permutation(len(self.scene.train))
         k = self.cfg.dm_batch_size
         n_full = (len(order) // k) * k if k > 1 else 0
         steps = [order[s:s + k] for s in range(0, n_full, k)]
         steps += [order[i:i + 1] for i in range(n_full, len(order))]
+        if self.cfg.prefetch > 0:
+            tr = self.scene.train
+            it = PrefetchIterator(
+                lambda idx: (tr.images[idx], tr.poses[idx].reshape(len(idx), 12),
+                             tr.hists[idx]),
+                steps, depth=self.cfg.prefetch, device=self.device)
+        else:
+            images, poses12, hists = self.train_data
+            it = ((images[i], poses12[i], hists[i])
+                  for i in (torch.as_tensor(idx, device=self.device) for idx in steps))
         losses, psnrs = [], []
-        for idx in steps:
-            i = torch.as_tensor(idx, device=self.device)
-            ls, ps = self.train_step(images[i], poses12[i], hists[i])
+        for batch in it:
+            ls, ps = self.train_step(*batch)
             losses.append(ls)
             psnrs.append(ps)
         return self._means(torch.cat(losses), torch.cat(psnrs))

@@ -16,7 +16,9 @@ dfnet_tpu/training/feature_trainer.py).
 BN runs in batch-stat mode unless freezeBN (then eval-mode stats, and the
 BN affine's gradients are zeroed, so Adam leaves it bit-identical).
 Images live on the device as (N, 3, H, W) float32; the per-step loss stays
-a device tensor and an epoch's losses are read once at its end.
+a device tensor and an epoch's losses are read once at its end. Under
+`--prefetch N` the train images stay on the host and each batch reaches
+the device through data/prefetch.py, N batches ahead of the step.
 Checkpoints are the JAX package's flat npz {"params", "state"} in its
 layout, so each package loads the other's.
 """
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from dfnet_tpu_torch.config import Config
+from dfnet_tpu_torch.data.prefetch import PrefetchIterator
 from dfnet_tpu_torch.data.scene import SceneData
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.dfnet import (
@@ -77,10 +80,6 @@ class FeatureTrainer:
             raise NotImplementedError(
                 "--vgg_init_path needs the ImageNet VGG16 converter, which is not "
                 "ported yet (ROADMAP.md, Queue 1 item 7)")
-        if cfg.prefetch > 0:
-            raise NotImplementedError(
-                "--prefetch (the host->device prefetcher) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 8)")
         self.cfg = cfg
         self.scene = scene
         self.nerf = nerf
@@ -126,6 +125,12 @@ class FeatureTrainer:
             return images
         t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
         return t.permute(0, 3, 1, 2).contiguous()
+
+    def epoch_images(self, images):
+        """(N, H, W, 3) numpy images in the form train_epoch takes: as they
+        are under --prefetch (the prefetcher copies each batch), else on
+        the device (`images`)."""
+        return np.asarray(images, np.float32) if self.cfg.prefetch > 0 else self.images(images)
 
     # ------------------------------------------------------------- step
     def loss_fn(self, params: Dict, state: Dict, targets, rgbs, poses12,
@@ -218,24 +223,39 @@ class FeatureTrainer:
 
     def train_epoch(self, targets, rgbs, virtue_view, poses_perturb,
                     rng: np.random.Generator) -> float:
-        """One epoch; images as numpy (N, H, W, 3) or device tensors from
-        `images`. Returns the mean step loss."""
+        """One epoch; images as `epoch_images` gives them: numpy (N, H, W, 3)
+        under --prefetch, else device tensors. Returns the mean step loss."""
         cfg = self.cfg
         n = len(self.scene.train)
         b = cfg.featurenet_batch_size
         lr = self.scheduler.lr
-        targets, rgbs = self.images(targets), self.images(rgbs)
-        if cfg.random_view_synthesis:
-            virtue_view = self.images(virtue_view)
-            poses_perturb = torch.as_tensor(np.asarray(poses_perturb).reshape(n, 12),
-                                            dtype=torch.float32, device=self.device)
-        losses = []
-        for idx in self.epoch_batches(n, b, rng):
-            i = torch.as_tensor(idx, device=self.device)
-            rp = virtue_view[i] if cfg.random_view_synthesis else None
-            pp = poses_perturb[i] if cfg.random_view_synthesis else None
-            losses.append(self.train_step(targets[i], rgbs[i], self._train_poses12[i],
-                                          rp, pp, lr))
+        rvs = cfg.random_view_synthesis
+        if rvs:
+            poses_perturb = np.asarray(poses_perturb, np.float32).reshape(n, 12)
+        batches = self.epoch_batches(n, b, rng)
+        if cfg.prefetch > 0:
+            poses12 = self.scene.train.poses.reshape(n, 12)
+
+            def make_batch(idx):
+                return (targets[idx], rgbs[idx], poses12[idx],
+                        virtue_view[idx] if rvs else None, poses_perturb[idx] if rvs else None)
+
+            nchw = lambda t: None if t is None else t.permute(0, 3, 1, 2).contiguous()
+            it = ((nchw(t), nchw(r), p, nchw(rp), pp) for t, r, p, rp, pp in
+                  PrefetchIterator(make_batch, batches, depth=cfg.prefetch, device=self.device))
+        else:
+            targets, rgbs = self.images(targets), self.images(rgbs)
+            if rvs:
+                virtue_view = self.images(virtue_view)
+                poses_perturb = torch.as_tensor(poses_perturb, device=self.device)
+
+            def on_device(idx):
+                i = torch.as_tensor(idx, device=self.device)
+                return (targets[i], rgbs[i], self._train_poses12[i],
+                        virtue_view[i] if rvs else None, poses_perturb[i] if rvs else None)
+
+            it = (on_device(idx) for idx in batches)
+        losses = [self.train_step(*batch, lr) for batch in it]
         return float(np.mean(torch.stack(losses).cpu().numpy()))
 
     @torch.no_grad()

@@ -19,8 +19,6 @@ from __future__ import annotations
 
 import os
 import os.path as osp
-import struct
-import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,6 +26,7 @@ import torch
 
 from dfnet_tpu_torch.config import Config
 from dfnet_tpu_torch.data.loader import epoch_permutation
+from dfnet_tpu_torch.data.png import write_png
 from dfnet_tpu_torch.data.scene import SceneData
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.factory import create_nerfh, render_settings
@@ -109,31 +108,6 @@ def stage1_loss(params: Dict, model: NeRFHModel, cfg: Config,
         loss = loss + cfg.proposal_loss_w * proposal_bound_loss(
             comp_p["weights"], z_vals, out["weights_fine"], out["z_all"])
     return loss, img2mse(out["rgb"], target)
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an 8-bit grayscale (H, W) or RGB (H, W, 3) image as PNG with
-    the standard library alone (zlib + struct)."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    if img.ndim == 2:
-        color = 0
-    elif img.ndim == 3 and img.shape[2] == 3:
-        color = 2
-    else:
-        raise ValueError(f"write_png: want (H,W) or (H,W,3), got {img.shape}")
-    h, w = img.shape[:2]
-    rows = img.reshape(h, -1)
-    raw = b"".join(b"\x00" + rows[i].tobytes() for i in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n")
-        fh.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
-        fh.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        fh.write(chunk(b"IEND", b""))
 
 
 class NeRFTrainer:

@@ -110,7 +110,6 @@ def test_eval_of_the_best_checkpoint_gives_jax_median_error(stage3, capsys):
 
 @pytest.mark.parametrize("flags, item", [
     (["--mesh_shape", "2"], "item 10"),
-    (["--prefetch", "2"], "item 8"),
     (["--pretrain_model_path", "dfnet.pt"], "item 7"),
     (["--ft_path", "nerf.tar"], "item 7"),
 ])

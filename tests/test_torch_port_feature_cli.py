@@ -88,7 +88,6 @@ def test_eval_of_a_jax_checkpoint_gives_jax_median_error(base, capsys):
     (["--render_feature_only"], "item 6"),
     (["--pretrain_model_path", "dfnet.pt"], "item 7"),
     (["--vgg_init_path", "vgg16.npz"], "item 7"),
-    (["--prefetch", "2"], "item 8"),
     (["--mesh_shape", "2"], "item 10"),
 ])
 def test_unported_flags_refuse(base, flags, item):

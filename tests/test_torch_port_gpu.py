@@ -750,3 +750,71 @@ def test_dm_epoch_launches_no_kernel(cuda, tmp_path):
     val = tr.eval_epoch()
     assert np.isfinite([loss, psnr, *val]).all()
     assert not any(nk.LAUNCHES.values()), nk.LAUNCHES
+
+
+# ------------------------------------------------------------------ data layer
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dataset", ["7Scenes", "Cambridge"])
+def test_replica_written_on_the_card_loads_back(cuda, tmp_path, dataset):
+    """A small replica rendered on the card, its PNGs decoded by
+    data/png.py, loaded by load_scene at the shipped stats setting: the
+    frames bit for bit, the NeRF-frame poses the sphere poses within 1e-6,
+    the images the frames / 255 area-downscaled (df 2; 854-wide Cambridge
+    frames at df 4 take the fractional path)."""
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.color import downscale_area
+    from dfnet_tpu_torch.data.loader import load_scene
+    from dfnet_tpu_torch.data.png import read_png
+    from dfnet_tpu_torch.scripts import replica
+
+    if dataset == "7Scenes":
+        rec = replica.write_seven_scenes_replica(str(tmp_path), n_frames=4, H=48, W=64,
+                                                 device=cuda)
+        frame = tmp_path / "deepslam_data" / "7Scenes" / "heads" / "seq-02" / \
+            "frame-000001.color.png"
+        keys, df = (2, 1), 2.0
+    else:
+        rec = replica.write_cambridge_replica(str(tmp_path), n_frames=4, H=48, W=86,
+                                              device=cuda)
+        frame = tmp_path / "deepslam_data" / "Cambridge" / "KingsCollege" / "train" / \
+            "rgb" / "frame00001.png"
+        keys, df = ("train", "test"), 4.0
+    np.testing.assert_array_equal(read_png(str(frame)), rec["frames"][keys[0]][1])
+    cfg = parse_args(["--datadir", rec["datadir"], "--dataset_type", dataset, "--df",
+                      str(df), "--encode_hist", "--load_pose_avg_stats", "--device", "cuda"])
+    scene = load_scene(cfg, stage="nerf")
+    for split, key in zip((scene.train, scene.val), keys):
+        np.testing.assert_allclose(split.poses, rec["poses"][key], atol=1e-6, rtol=0)
+        want = [downscale_area((f / 255.0).astype(np.float32), df) for f in rec["frames"][key]]
+        np.testing.assert_array_equal(split.images, np.stack(want))
+
+
+@pytest.mark.gpu
+def test_prefetcher_delivers_the_host_batches_through_its_side_stream(cuda):
+    """PrefetchIterator on the card: every batch equals its host arrays, on
+    the card, after a long kernel queued on the consumer's stream ahead of
+    each (the copies run on the side stream; the consumer waits on their
+    event), and an error in the producer surfaces at its batch."""
+    from dfnet_tpu_torch.data.prefetch import PrefetchIterator
+
+    rng = np.random.default_rng(0)
+    host = [(rng.normal(size=(4, 240, 320, 3)).astype(np.float32),
+             rng.integers(0, 100, (4, 10)).astype(np.int32)) for _ in range(6)]
+    it = PrefetchIterator(lambda i: host[i], range(6), depth=2, device=cuda)
+    assert it._stream != torch.cuda.current_stream(cuda)
+    busy = torch.randn(2048, 2048, device=cuda)
+    for i, (img, hist) in enumerate(it):
+        for _ in range(8):
+            busy = torch.tanh(busy @ busy * 1e-3)
+        assert img.device.type == "cuda" and hist.dtype == torch.int32
+        np.testing.assert_array_equal(img.cpu().numpy(), host[i][0])
+        np.testing.assert_array_equal(hist.cpu().numpy(), host[i][1])
+
+    def bad(i):
+        if i == 1:
+            raise ValueError("boom")
+        return (host[i][1],)
+
+    with pytest.raises(ValueError, match="boom"):
+        list(PrefetchIterator(bad, range(3), depth=1, device=cuda))
