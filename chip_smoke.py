@@ -128,7 +128,23 @@ Phases (any failure exits non-zero):
                lines give the replica write s, the PNG decode ms a frame
                (filter 0 and Paeth), whether PIL imports, load s per split,
                stage-1 steps/s and val PSNR, stage-2 and stage-3 epoch s and
-               the median errors.
+               the median errors;
+  12. tools — on phase 11's replica and checkpoints, at the shipped
+               configs: the checkpoint converters (the stage-1 checkpoint to
+               a reference .tar, the stage-2 best to a .pt, and back through
+               dfnet_tpu_torch.convert's main, bit for bit); FrozenNeRF from
+               the .tar (its pre-render launches coarse_sigma_t on the coarse
+               D=8 W=128 net and fine_raw_t and equals the proposal-less
+               .npz's bit for bit; kernel against plain render_fn at 3e-2;
+               ms a 16,384-ray chunk of the .tar and .npz paths); stage-2
+               and stage-3 --eval from the .pt (the .npz's median errors) and
+               the triplet axis a .pt start takes; the 120-frame spiral
+               (--render_pose_only: launches, frames/s, the APNG's first
+               frame against the first render); the split videos (rgb frames
+               equal the split PNGs, disp over the split max);
+               --render_feature_only's 2 x n_train PNGs; utils/metrics card
+               against CPU; a device_trace naming both kernels;
+               --check_numerics on a NaN leaf. `[tools]` lines.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.
 """
@@ -1829,7 +1845,9 @@ def phase_sevenscenes(device):
     stage 2's epoch losses with and without --prefetch within
     SEVEN_PREFETCH_TOL. Figures: replica write s, PNG decode ms a frame
     (filter 0 and Paeth), whether PIL imports, load s per split, stage-1
-    steps/s and val PSNR, stage-2 and stage-3 epoch s, median pose errors."""
+    steps/s and val PSNR, stage-2 and stage-3 epoch s, median pose errors.
+    The replica and the checkpoints stay for phase_tools (`handoff`); the
+    caller removes them."""
     import torch
 
     from dfnet_tpu_torch.cli import dm as dm_cli
@@ -1949,7 +1967,6 @@ def phase_sevenscenes(device):
     m1 = metrics(base / "nerfh" / "metrics.jsonl")
     m2, m2b = metrics(base / "dfnet" / "metrics.jsonl"), metrics(base_b / "dfnet" / "metrics.jsonl")
     m3 = metrics(base / "dfnetdm" / "metrics.jsonl")
-    shutil.rmtree(root, ignore_errors=True)
 
     # the scenes each CLI loaded against the writer's
     e1 = (seven_expected(rec, 2, 5, 4.0), seven_expected(rec, 1, 50, 4.0))
@@ -2016,7 +2033,10 @@ def phase_sevenscenes(device):
     if len(losses3) != SEVEN_EPOCHS + 1 or not np.all(np.isfinite(losses3)):
         raise SystemExit(f"[sevenscenes] stage 3's losses are not finite: {losses3}")
     launches = {k: leg1[k] + l_feature[k] + l_feature_b[k] + l_dm[k] for k in leg1}
-    return dict(launches=launches, write_s=write_s, decode=decode, pil=pil, loads=loads,
+    handoff = dict(root=str(root), datadir=rec["datadir"], base=str(base),
+                   stage1=str(base / "nerfh" / f"{SEVEN_STAGE1_EPOCHS:06d}.npz"),
+                   stage2=str(ckpt))
+    return dict(handoff=handoff, launches=launches, write_s=write_s, decode=decode, pil=pil, loads=loads,
                 stage1=dict(losses=losses1, steps_per_s=steps_per_s, val_psnr=psnr,
                             val_psnr_init=psnr_init, launches=leg1),
                 stage2=dict(losses=losses2, losses_prefetch=losses2b, prefetch_gap=gap,
@@ -2024,6 +2044,306 @@ def phase_sevenscenes(device):
                             launches=l_feature),
                 stage3=dict(losses=losses3, epoch_s=epochs["dm"],
                             median=np.asarray(err3[0]).tolist(), launches=l_dm))
+
+
+def _leaves(tree, prefix=""):
+    """{path: numpy array} of a nested dict of arrays or tensors."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v.detach().cpu().numpy() if hasattr(v, "detach") \
+                else np.asarray(v)
+    return out
+
+
+def _same_leaves(got: dict, want: dict) -> bool:
+    """Same paths, dtypes and shapes, and every leaf equal bit for bit."""
+    got, want = _leaves(got), _leaves(want)
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want)
+
+
+def phase_tools(device, handoff: dict):
+    """The converters, the spiral and video renders and the eval utilities
+    at the shipped configs, on phase_sevenscenes' replica and checkpoints
+    (`handoff`): export the stage-1 checkpoint to a reference `.tar` and
+    the stage-2 best to a `.pt`, and convert both back, through
+    `python -m dfnet_tpu_torch.convert`'s main (leaves bit-equal, times);
+    FrozenNeRF from the `.tar` (as --ft_path), whose pre-render must launch
+    coarse_sigma_t on the coarse D=8 W=128 net and fine_raw_t and equal the
+    pre-render of the `.npz` less its proposal net bit for bit, and whose
+    kernel renders agree with the plain render_fn at TOL_COMP (and the
+    `.tar` and `.npz` paths' ms a 16,384 rays by CUDA events); --eval of
+    stages 2 and 3 from the `.pt` (the median errors of the `.npz`) and the
+    triplet axis of a stage-2 start from it; cli.nerf --render_pose_only
+    (120 frames at 120x160: launches, the APNG's frame count, its first
+    frame against to8b of the first rendered one, frames/s); --render_test
+    --render_video_train --render_video_test (each rgb frame the split's
+    PNG, each disp frame over the split's max disp); --render_feature_only
+    (2 x n_train PNGs); utils/metrics ssim and psnr of the val renders, card
+    against CPU within 1e-5; a device_trace of one render that names both
+    kernels; --check_numerics raising FloatingPointError on a NaN in the
+    fine net's rgb bias (and what a NaN in a hidden weight does)."""
+    import torch
+
+    from dfnet_tpu_torch import convert
+    from dfnet_tpu_torch.cli import dm as dm_cli
+    from dfnet_tpu_torch.cli import feature as feature_cli
+    from dfnet_tpu_torch.cli import nerf as nerf_cli
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data import png
+    from dfnet_tpu_torch.data.loader import load_scene
+    from dfnet_tpu_torch.models.losses import to8b
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.training.checkpoints import load_pytree, save_pytree
+    from dfnet_tpu_torch.training.feature_losses import triplet_axis
+    from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
+    from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
+    from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+    from dfnet_tpu_torch.utils import metrics, profiling
+    from dfnet_tpu_torch.utils.timing import cuda_ms
+
+    root = Path(handoff["root"]) / "tools"
+    root.mkdir(parents=True, exist_ok=True)
+    base, data = handoff["base"], ["--datadir", handoff["datadir"], "--device", str(device)]
+    cfgdir = ROOT / "configs"
+    nerf_argv = ["--config", str(cfgdir / "config_nerfh.txt"), "--basedir", base] + data
+    feat_argv = ["--config", str(cfgdir / "config_dfnet.txt"), "--basedir", base] + data
+    dm_argv = ["--config", str(cfgdir / "config_dfnetdm.txt"), "--basedir", base] + data
+    out, launches = {}, {}
+
+    def leg(name, fn):
+        torch.cuda.synchronize()
+        nk.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t
+        launches[name] = dict(nk.LAUNCHES)
+        return res
+
+    # --- the converters, both ways through main
+    tar, pt = str(root / "nerf.tar"), str(root / "dfnet.pt")
+    back_nerf, back_dfnet = str(root / "nerf_back.npz"), str(root / "dfnet_back.npz")
+    conv = {}
+    for name, argv in (("export_tar", [handoff["stage1"], tar]),
+                       ("tar_to_npz", [tar, back_nerf, "--netdepth", "8"]),
+                       ("export_pt", [handoff["stage2"], pt]),
+                       ("pt_to_npz", [pt, back_dfnet])):
+        t = time.perf_counter()
+        convert.main(argv)
+        conv[name] = time.perf_counter() - t
+    (n1, s1), (n2, s2) = load_pytree(handoff["stage1"]), load_pytree(back_nerf)
+    (d1, _), (d2, _) = load_pytree(handoff["stage2"]), load_pytree(back_dfnet)
+    want_nerf = {k: v for k, v in n1["params"].items() if k != "proposal"}
+    if not (_same_leaves(n2["params"], want_nerf) and int(s1["global_step"]) ==
+            int(s2["global_step"]) and "proposal" in n1["params"]):
+        raise SystemExit("[tools] the stage-1 checkpoint does not come back from its .tar "
+                         "bit for bit")
+    if not _same_leaves(d2, d1):
+        raise SystemExit("[tools] the stage-2 checkpoint does not come back from its .pt "
+                         "bit for bit")
+    out["convert_s"] = conv
+    log(f"[tools] converters (main): s {json.dumps(conv)}; the .tar ({os.path.getsize(tar)} "
+        f"bytes) and .pt ({os.path.getsize(pt)} bytes) convert back to the checkpoints' "
+        f"leaves bit for bit (the .tar without the proposal net)")
+
+    # --- FrozenNeRF from the .tar (stage 2's --ft_path)
+    cfg2 = parse_args(feat_argv + ["--ft_path", tar], stage="feature")
+    scene = load_scene(cfg2, stage="apr")
+    tr = scene.train
+
+    def frozen(path, *flags):
+        cfg = parse_args(feat_argv + ["--ft_path", path, *flags], stage="feature")
+        return FrozenNeRF.from_experiment(cfg, scene.hwf, scene.near, scene.far,
+                                          scene.world_setup)
+
+    nerf_tar = frozen(tar)
+    if "proposal" in nerf_tar.params or not nerf_tar.uses_fast_render:
+        raise SystemExit("[tools] the .tar FrozenNeRF holds a proposal net or takes the "
+                         "plain path")
+    rgb_tar = leg("tar_prerender", lambda: nerf_tar.prerender_views(tr.poses, tr.hists))
+    nerf_npz = frozen(handoff["stage1"])
+    del nerf_npz.params["proposal"]
+    rgb_npz = leg("npz_noproposal_prerender",
+                  lambda: nerf_npz.prerender_views(tr.poses, tr.hists))
+    if not all(launches["tar_prerender"][k] > 0 for k in ("coarse_sigma_t", "fine_raw_t")):
+        raise SystemExit(f"[tools] the .tar pre-render did not launch both sweeps: "
+                         f"{launches['tar_prerender']}")
+    if not np.array_equal(rgb_tar, rgb_npz):
+        raise SystemExit("[tools] the .tar pre-render is not the proposal-less .npz's bit "
+                         f"for bit: {float(np.abs(rgb_tar - rgb_npz).max())}")
+    full_tar, full_npz = frozen(tar, "--tinyimg", "false", "--chunk", "16384"), \
+        frozen(handoff["stage1"], "--tinyimg", "false", "--chunk", "16384")
+    views = (0, len(tr) - 1)
+    with torch.no_grad():
+        got = torch.stack([full_tar.render_at_pose(tr.poses[i], tr.hists[i]) for i in views])
+        want = torch.stack([full_tar.render_fn(
+            full_tar.params, torch.as_tensor(tr.poses[i], device=device),
+            torch.as_tensor(tr.hists[i], device=device)) for i in views])
+    ok, agree = compare_rows(got, want, TOL_COMP)
+    if not ok:
+        raise SystemExit(f"[tools] the .tar kernel render disagrees with render_fn: {agree}")
+    chunks = scene.H * scene.W / 16384
+    chunk_ms = {k: cuda_ms(lambda n=n: n.render_at_pose(tr.poses[0], tr.hists[0]), 10) / chunks
+                for k, n in (("tar_coarse_placement", full_tar),
+                             ("npz_proposal_placement", full_npz))}
+    out.update(agreement=agree, chunk_ms=chunk_ms)
+    log(f"[tools] FrozenNeRF from the .tar: pre-render of {len(tr)} views of "
+        f"{rgb_tar.shape[1:3]} (tinyimg) in {out['tar_prerender_s']:.3f} s, launches "
+        f"{launches['tar_prerender']}, equal to the proposal-less .npz's bit for bit; "
+        f"kernel vs plain render_fn at {scene.H}x{scene.W}: {json.dumps(agree)}; "
+        f"ms a 16,384-ray chunk (CUDA events, {scene.H}x{scene.W} views): "
+        f"{json.dumps(chunk_ms)}")
+
+    # --- evaluation from the .pt
+    evals = {}
+    for stage, cli, argv in (("feature", feature_cli.train, feat_argv),
+                             ("dm", dm_cli.main, dm_argv)):
+        for tag, path in (("npz", handoff["stage2"]), ("pt", pt)):
+            evals[f"{stage}_{tag}"] = np.asarray(
+                cli(argv + ["--eval", "--pretrain_model_path", path])).tolist()
+        if evals[f"{stage}_pt"] != evals[f"{stage}_npz"]:
+            raise SystemExit(f"[tools] {stage} --eval from the .pt differs from the .npz: "
+                             f"{evals}")
+    axis = FeatureTrainer(parse_args(feat_argv + ["--pretrain_model_path", pt],
+                                     stage="feature"), scene, None).triplet_axis
+    if axis != triplet_axis(True):
+        raise SystemExit(f"[tools] a stage-2 start from the .pt took triplet axis {axis}")
+    out.update(evals=evals, pt_triplet_axis=axis)
+    log(f"[tools] --eval [median, mean] from the .npz and the .pt: {json.dumps(evals)}; "
+        f"a stage-2 start from the .pt takes triplet axis {axis} (the reference's, W)")
+
+    # --- the spiral
+    frames = []
+    orig_write = nerf_cli.write_video
+
+    def recording(path, f, *a):
+        frames.append(f)
+        return orig_write(path, f, *a)
+
+    nerf_cli.write_video = recording
+    try:
+        spiral = leg("spiral", lambda: nerf_cli.train(nerf_argv + ["--render_pose_only"]))
+    finally:
+        nerf_cli.write_video = orig_write
+    apng = png.read_apng(spiral)
+    n = len(apng)
+    first = (to8b(frames[0][0]) / 255.0).astype(np.float32)
+    cfg1 = parse_args(nerf_argv, stage="nerf")
+    sc1 = load_scene(cfg1, stage="nerf")
+    if apng.shape[:3] != (120, sc1.H, sc1.W) or not np.array_equal(png.read_image(spiral),
+                                                                   first):
+        raise SystemExit(f"[tools] the spiral video {spiral} holds {apng.shape}, or its first "
+                         "frame is not to8b of the first render")
+    if any(launches["spiral"][k] != n for k in ("coarse_sigma_t", "fine_raw_t")):
+        raise SystemExit(f"[tools] the spiral's launches {launches['spiral']} are not one "
+                         f"of each sweep a frame")
+    out["spiral"] = dict(frames=n, frames_per_s=n / out["spiral_s"],
+                         bytes=os.path.getsize(spiral))
+    log(f"[tools] --render_pose_only: {n} frames of {apng.shape[1:3]} in "
+        f"{out['spiral_s']:.3f} s ({n / out['spiral_s']:.2f} frames/s, render and APNG), "
+        f"{os.path.getsize(spiral)} bytes; launches {launches['spiral']}")
+
+    # --- the split videos
+    leg("videos", lambda: nerf_cli.train(nerf_argv + ["--render_test", "--render_video_train",
+                                                        "--render_video_test"]))
+    trainer = NeRFTrainer(cfg1, sc1)
+    step = trainer.try_resume()
+    exp = Path(base) / "nerfh"
+    videos = {}
+    for split, vid, pngdir in ((sc1.train, f"nerfh_trainset_{step:06d}_train",
+                                f"evaluate_train_test_{step:06d}"),
+                               (sc1.val, f"nerfh_test_{step:06d}_test",
+                                f"evaluate_val_test_{step:06d}")):
+        rgb = png.read_apng(str(exp / f"{vid}_rgb.png"))
+        disp = png.read_apng(str(exp / f"{vid}_disp.png"))
+        d = np.stack([trainer._render(trainer.params, torch.as_tensor(p, device=device),
+                                      torch.as_tensor(h, device=device), step)["disp"]
+                      .cpu().numpy() for p, h in zip(split.poses, split.hists)])
+        ok = (len(rgb) == len(disp) == len(split)
+              and all(np.array_equal(rgb[j], png.read_png(str(exp / pngdir / f"{j:03d}.png")))
+                      for j in range(len(split)))
+              and np.array_equal(disp[..., 0], to8b(d / max(d.max(), 1e-8))))
+        if not ok:
+            raise SystemExit(f"[tools] the {vid} videos do not hold the split's frames")
+        videos[vid] = len(rgb)
+    out["videos"] = videos
+    log(f"[tools] --render_test --render_video_train --render_video_test: videos {videos} "
+        f"(rgb frames equal the split PNGs, disp over the split max) in "
+        f"{out['videos_s']:.3f} s; launches {launches['videos']}")
+
+    # --- saliency maps
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        leg("saliency", lambda: feature_cli.train(
+            feat_argv + ["--pretrain_model_path", handoff["stage2"], "--render_feature_only"]))
+    finally:
+        os.chdir(cwd)
+    sal = {sub: sorted(os.listdir(root / "tmp" / "features" / sub)) for sub in ("target", "rgb")}
+    if any(v != [f"{i:04d}.png" for i in range(len(tr))] for v in sal.values()):
+        raise SystemExit(f"[tools] --render_feature_only wrote {sal}")
+    log(f"[tools] --render_feature_only: {2 * len(tr)} PNGs in {out['saliency_s']:.3f} s; "
+        f"launches {launches['saliency']}")
+
+    # --- metrics and the trace
+    hist = torch.as_tensor(sc1.val.hists[0], device=device)
+    pose = torch.as_tensor(sc1.val.poses[0], device=device)
+    renders = torch.stack([trainer._render(trainer.params, torch.as_tensor(p, device=device),
+                                           torch.as_tensor(h, device=device), step)["rgb"]
+                           for p, h in zip(sc1.val.poses, sc1.val.hists)])
+    gt = torch.as_tensor(sc1.val.images, device=device)
+    met = {}
+    for name in ("ssim", "psnr"):
+        card = float(getattr(metrics, name)(renders, gt))
+        cpu = float(getattr(metrics, name)(renders.cpu(), gt.cpu()))
+        met[name] = dict(card=card, cpu=cpu)
+        if abs(card - cpu) > 1e-5:
+            raise SystemExit(f"[tools] metrics.{name} on the card {card} vs the CPU {cpu}")
+    trace_dir = root / "trace"
+    with profiling.device_trace(str(trace_dir)):
+        with profiling.annotate("render_view"):
+            trainer._render(trainer.params, pose, hist, step)
+            torch.cuda.synchronize()
+    (trace,) = trace_dir.iterdir()
+    names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]}
+    seen = {k: sorted(x for x in names if k in x) for k in ("coarse_sigma", "fine_raw")}
+    if not all(seen.values()) or "render_view" not in names:
+        raise SystemExit(f"[tools] the trace of one render does not name both kernels: {seen}")
+    out.update(metrics=met, trace_kernels=seen)
+    log(f"[tools] utils/metrics of {len(gt)} val renders, card / CPU: {json.dumps(met)}; "
+        f"device_trace of one render names {json.dumps(seen)}")
+
+    # --- --check_numerics on a NaN leaf: the fine net's rgb bias reaches the
+    # loss on every path; a NaN in a hidden weight does not get past the
+    # kernels' ReLU (fmaxf maps NaN to 0), so that leaf is reported only
+    numerics = {}
+    for tag, layer, idx in (("rgb_bias", "static_rgb", (0,)), ("hidden_w", "xyz_0", (0, 0))):
+        tree, scalars = load_pytree(handoff["stage1"])
+        leaf = tree["params"]["fine"][layer]["b" if tag == "rgb_bias" else "w"]
+        leaf[idx] = np.nan
+        nan_base = root / f"nan_{tag}"
+        save_pytree(str(nan_base / "nerfh" / Path(handoff["stage1"]).name), tree,
+                    global_step=int(scalars["global_step"]))
+        argv = ["--config", str(cfgdir / "config_nerfh.txt"), "--basedir", str(nan_base),
+                "--epochs", str(int(scalars["global_step"])), "--check_numerics"] + data
+        try:
+            nerf_cli.train(argv)
+            numerics[tag] = "ran on"
+        except FloatingPointError as e:
+            numerics[tag] = f"FloatingPointError: {e}"
+        if torch.is_anomaly_enabled():
+            raise SystemExit("[tools] --check_numerics left anomaly mode on")
+    if not numerics["rgb_bias"].startswith("FloatingPointError"):
+        raise SystemExit(f"[tools] --check_numerics let a NaN weight train on: {numerics}")
+    out["check_numerics"] = numerics
+    log(f"[tools] --check_numerics with a NaN in fine/static_rgb/b and in fine/xyz_0/w: "
+        f"{json.dumps(numerics)}")
+    out["launches"] = launches
+    return out
 
 
 def main() -> int:
@@ -2070,6 +2390,11 @@ def main() -> int:
         feature = timed(phase_feature, device, handoff)
         dm = timed(phase_dm, device, feature["best_ckpt"])
     seven = timed(phase_sevenscenes, device)
+    handoff = seven.pop("handoff")
+    try:
+        tools = timed(phase_tools, device, handoff)
+    finally:
+        shutil.rmtree(handoff["root"], ignore_errors=True)
     cases += feature["cases"]
 
     # each kernel's row: its case on the main path it was ported for, and
@@ -2093,7 +2418,8 @@ def main() -> int:
                      "train": train_result["launches"],
                      "feature": feature["launches"],
                      "dm": dm["launches"],
-                     "sevenscenes": seven["launches"]}
+                     "sevenscenes": seven["launches"],
+                     **{f"tools_{k}": v for k, v in tools["launches"].items()}}
     kernels = []
     for name, (asset, sched, path) in main_case.items():
         c = next(c for c in cases if c["name"] == name and c["asset"] == asset
@@ -2117,6 +2443,7 @@ def main() -> int:
     log(json.dumps({"feature": {k: v for k, v in feature.items() if k != "cases"}}))
     log(json.dumps({"dm": dm}))
     log(json.dumps({"sevenscenes": seven}))
+    log(json.dumps({"tools": tools}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

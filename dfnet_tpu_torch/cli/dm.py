@@ -13,10 +13,13 @@ reference hardcodes). Each epoch prints its train and val loss and PSNR,
 appends to <basedir>/<model_name>/metrics.jsonl and hands the val loss
 (or PSNR, under val_on_psnr) to EarlyStopping, which writes the
 checkpoints; every i_eval epochs it prints the val median pose error.
-`--eval` prints the median error of a checkpoint. `--prefetch N` feeds
-each step from the host through data/prefetch.py. `--mesh_shape` above 1,
-`.pt` DFNet and `.tar` NeRF checkpoints come with later slices of the
-port (ROADMAP.md) and raise NotImplementedError.
+`--eval` prints the median error of a checkpoint. The DFNet checkpoints
+may be `.npz` files of either package or the reference's `.pt`, the NeRF
+(`--ft_path`, or NNNNNN.tar in the expdir) the reference's `.tar`.
+`--prefetch N` feeds each step from the host through data/prefetch.py.
+`--check_numerics` raises FloatingPointError at the first step with a
+non-finite loss. `--mesh_shape` above 1 comes with a later slice of the
+port (ROADMAP.md) and raises NotImplementedError.
 """
 
 import os.path as osp
@@ -24,7 +27,7 @@ import os.path as osp
 import numpy as np
 import torch
 
-from dfnet_tpu_torch.config import parse_args
+from dfnet_tpu_torch.config import apply_runtime_flags, parse_args
 from dfnet_tpu_torch.data.loader import load_scene
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.dfnet import DFNetConfig, dfnet_forward
@@ -53,6 +56,11 @@ def train(argv=None):
     """Runs the stage; returns the last (median, mean) pose error it
     measured, or None when no eval ran."""
     cfg = parse_args(argv, stage="dm")
+    with apply_runtime_flags(cfg):
+        return _train(cfg)
+
+
+def _train(cfg):
     device = resolve_device(cfg.device)
     refuse_unported(cfg)                 # before the scene and the NeRF load
     scene, nerf = _setup(cfg, device)
@@ -82,6 +90,11 @@ def evaluate(argv=None):
     """Prints and returns the (median, mean) pose error of the
     --pretrain_model_path checkpoint on the val split (float32 DFNet)."""
     cfg = parse_args(argv, stage="dm")
+    with apply_runtime_flags(cfg):
+        return _evaluate(cfg)
+
+
+def _evaluate(cfg):
     device = resolve_device(cfg.device)
     scene = load_scene(cfg, stage="apr")
     mcfg = DFNetConfig.small() if cfg.DFNet_s else DFNetConfig()

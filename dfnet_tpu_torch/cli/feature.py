@@ -12,24 +12,32 @@ every rvs_refresh_rate epochs, and each epoch prints its train and val
 loss, appends to <basedir>/<model_name>/metrics.jsonl and hands the val
 loss to ReduceLROnPlateau and EarlyStopping (which writes the
 checkpoints); every i_eval epochs it prints the val median pose error.
-`--eval` prints the median error of a checkpoint. `--prefetch N` keeps
-the train images on the host and copies each batch to the GPU N batches
-ahead of the step (data/prefetch.py). `--render_feature_only`, a `.pt`
-checkpoint, `--vgg_init_path` and a `--mesh_shape` above 1 come with later
-slices of the port (ROADMAP.md) and raise NotImplementedError.
+`--eval` prints the median error of a checkpoint (`.npz` of either
+package, or the reference's `.pt`). `--prefetch N` keeps the train images
+on the host and copies each batch to the GPU N batches ahead of the step
+(data/prefetch.py). `--render_feature_only` writes the saliency maps of
+every train view and its render to ./tmp/features/{target,rgb}/NNNN.png,
+relative to the working directory. `--vgg_init_path` starts the encoder
+from a torchvision VGG16 state-dict file. `--check_numerics` raises
+FloatingPointError at the first step with a non-finite loss. A
+`--mesh_shape` above 1 comes with a later slice of the port (ROADMAP.md)
+and raises NotImplementedError.
 """
 
 import os
 import os.path as osp
 
 import numpy as np
+import torch
 
-from dfnet_tpu_torch.config import parse_args
+from dfnet_tpu_torch.config import apply_runtime_flags, parse_args
 from dfnet_tpu_torch.data.loader import load_scene
 from dfnet_tpu_torch.device import resolve_device
+from dfnet_tpu_torch.models.dfnet import dfnet_forward
 from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
 from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
 from dfnet_tpu_torch.utils.metrics_logger import MetricsLogger
+from dfnet_tpu_torch.utils.visualization import save_image_saliancy_single
 
 
 def dump_args(cfg):
@@ -40,15 +48,41 @@ def dump_args(cfg):
             fh.write(f"{k} = {getattr(cfg, k)}\n")
 
 
+@torch.no_grad()
+def render_features(cfg, scene, trainer, out_root="./tmp/features"):
+    """Per-view saliency maps of DFNet's features for the real and the
+    rendered image (reference run_feature.py:313-346): channel 2 of level 0
+    of each, an eval-mode float32 forward, at
+    <out_root>/{target,rgb}/NNNN.png."""
+    rgbs = trainer.prerender_train_views()
+    tr = scene.train
+    for sub in ("target", "rgb"):
+        os.makedirs(osp.join(out_root, sub), exist_ok=True)
+    save_i = 2  # feature channel to dump
+    for i in range(len(tr)):
+        x = trainer.images(np.stack([tr.images[i], rgbs[i]]))
+        feats, _, _ = dfnet_forward(
+            trainer.params, trainer.state, x, trainer.model_cfg, return_feature=True,
+            is_single_stream=False, return_pose=False, upsample_h=scene.H,
+            upsample_w=scene.W)
+        # (L, B, C, H, W) stacks of the target and the render
+        save_image_saliancy_single(feats[0][0, 0, save_i],
+                                   osp.join(out_root, "target", f"{i:04d}.png"))
+        save_image_saliancy_single(feats[1][0, 0, save_i],
+                                   osp.join(out_root, "rgb", f"{i:04d}.png"))
+    print("render features done")
+
+
 def train(argv=None):
     """Runs the stage; returns the last (median, mean) pose error it
     measured, or None when no eval ran."""
     cfg = parse_args(argv, stage="feature")
+    with apply_runtime_flags(cfg):
+        return _run(cfg)
+
+
+def _run(cfg):
     device = resolve_device(cfg.device)
-    if cfg.render_feature_only:
-        raise NotImplementedError(
-            "--render_feature_only needs the saliency-map writer, which is not "
-            "ported yet (ROADMAP.md, Queue 1 item 6)")
     if cfg.dataset_type not in ("7Scenes", "Cambridge", "synthetic"):
         print("Unknown dataset type", cfg.dataset_type, "exiting")
         return None
@@ -63,6 +97,10 @@ def train(argv=None):
 
     if cfg.eval:
         return trainer.eval_median_error(scene.val)
+
+    if cfg.render_feature_only:
+        render_features(cfg, scene, trainer)
+        return None
 
     dump_args(cfg)
     targets = trainer.epoch_images(scene.train.images)

@@ -13,7 +13,9 @@ files (`key = value` lines, `#` comments, bracketed float lists such as
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import re
 import sys
 from dataclasses import dataclass, field
@@ -166,7 +168,8 @@ class Config:
     aot_cache_dir: str = "~/.cache/dfnet_tpu/aot"  # JAX package only; parsed and unused here
     rng_seed: int = 0
     device: str = "cuda"                # port only: torch device of the entry points ("cpu" to opt out of the GPU)
-    vgg_init_path: str = ""             # converted ImageNet VGG16 .npz (see convert.py)
+    vgg_init_path: str = ""             # torchvision VGG16 ImageNet state-dict file, read by
+                                        # torch.load (convert.py::convert_vgg16_imagenet)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -383,3 +386,36 @@ def parse_args(argv: Optional[List[str]] = None, stage: str = "nerf") -> Config:
     if unknown:
         print(f"[config] ignoring unknown keys: {sorted(unknown)}", file=sys.stderr)
     return cfg
+
+
+@contextlib.contextmanager
+def apply_runtime_flags(cfg: Config):
+    """The runtime knobs of a CLI run, for the run's duration (`with
+    apply_runtime_flags(cfg): ...`; call once per CLI).
+
+    check_numerics is the failure-detection knob, the counterpart of the
+    JAX package's jax_debug_nans: torch's autograd anomaly mode with its
+    NaN check, so a backward op that returns a NaN raises and names
+    itself; and each trainer's step checks its loss (check_finite_loss),
+    so the step that makes a non-finite loss raises FloatingPointError
+    before it updates a weight. Anomaly mode is global in torch, so it is
+    put back as it was when the run ends."""
+    if not cfg.check_numerics:
+        yield
+        return
+    import torch
+
+    prev = torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()
+    torch.autograd.set_detect_anomaly(True, check_nan=True)
+    try:
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(prev[0], check_nan=prev[1])
+
+
+def check_finite_loss(loss, where: str) -> None:
+    """Raise FloatingPointError naming `where` when the scalar `loss` is NaN
+    or infinite (check_numerics; reads the loss back, a device sync)."""
+    value = float(loss.detach())
+    if not math.isfinite(value):
+        raise FloatingPointError(f"--check_numerics: loss {value} at {where}")

@@ -38,7 +38,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dfnet_tpu_torch.config import Config
+from dfnet_tpu_torch.config import Config, check_finite_loss
 from dfnet_tpu_torch.data.prefetch import PrefetchIterator
 from dfnet_tpu_torch.data.scene import SceneData
 from dfnet_tpu_torch.device import resolve_device
@@ -111,6 +111,7 @@ class DMTrainer:
             patience=cfg.patience[0], val_on_psnr=cfg.val_on_psnr)
         self.gen = gen if gen is not None else torch.Generator().manual_seed(cfg.rng_seed)
         self.val_data = self._split(scene.val)
+        self.steps = 0
 
     @property
     def params(self) -> Dict:
@@ -213,8 +214,11 @@ class DMTrainer:
         with conv_precision(self.compute_dtype):
             self.optimizer.zero_grad(set_to_none=True)
             loss, aux = loss_fn(self.params, *args)
+            if self.cfg.check_numerics:
+                check_finite_loss(loss, f"stage-3 step {self.steps}")
             loss.backward()
         self.adam_update()
+        self.steps += 1
         aux = tuple(a.detach() for a in aux) if isinstance(aux, tuple) else aux.detach()
         return loss.detach(), aux
 

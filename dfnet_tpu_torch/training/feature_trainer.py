@@ -31,7 +31,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from dfnet_tpu_torch.config import Config
+from dfnet_tpu_torch.config import Config, check_finite_loss
+from dfnet_tpu_torch.convert import convert_dfnet_checkpoint, convert_vgg16_imagenet
 from dfnet_tpu_torch.data.prefetch import PrefetchIterator
 from dfnet_tpu_torch.data.scene import SceneData
 from dfnet_tpu_torch.device import resolve_device
@@ -59,12 +60,11 @@ from dfnet_tpu_torch.training.nerf_trainer import named_leaves
 
 
 def load_dfnet_params(path: str, device="cpu") -> Tuple[Dict, Dict]:
-    """(params, state) of a DFNet checkpoint (.npz, the JAX package's
-    layout, written by either package) as the port's tensors on `device`."""
+    """(params, state) of a DFNet checkpoint as the port's tensors on
+    `device`: a `.npz` in the JAX package's layout, written by either
+    package, or the reference's `.pt` (convert.py)."""
     if path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: reference .pt checkpoints need the converters, which are "
-            "not ported yet (ROADMAP.md, Queue 1 item 7)")
+        return convert_dfnet_checkpoint(path, device)
     tree, _ = load_pytree(path)
     return dfnet_params_from_jax(tree["params"], tree["state"], device)
 
@@ -76,10 +76,6 @@ class FeatureTrainer:
             raise NotImplementedError(
                 "a device mesh (multi-GPU training) is not ported yet (ROADMAP.md, "
                 "Queue 1 item 10)")
-        if cfg.vgg_init_path:
-            raise NotImplementedError(
-                "--vgg_init_path needs the ImageNet VGG16 converter, which is not "
-                "ported yet (ROADMAP.md, Queue 1 item 7)")
         self.cfg = cfg
         self.scene = scene
         self.nerf = nerf
@@ -88,6 +84,9 @@ class FeatureTrainer:
         if gen is None:
             gen = torch.Generator().manual_seed(cfg.rng_seed)
         params, state = init_dfnet_params(gen, self.model_cfg, self.device)
+        if cfg.vgg_init_path:
+            params["encoder"] = convert_vgg16_imagenet(cfg.vgg_init_path, self.device)
+            print(f"[dfnet] ImageNet VGG16 init from {cfg.vgg_init_path}")
         if cfg.pretrain_model_path:
             params, state = load_dfnet_params(cfg.pretrain_model_path, self.device)
             print(f"[dfnet] loaded pretrained {cfg.pretrain_model_path}")
@@ -101,9 +100,15 @@ class FeatureTrainer:
         self.early_stopping = EarlyStopping(
             osp.join(cfg.basedir, cfg.model_name or "dfnet"),
             patience=cfg.patience[0], val_on_psnr=cfg.val_on_psnr)
-        # the reference-exact triplet axis is auto-on only for .pt models,
-        # which the port refuses, so auto means the channel axis here
-        self.triplet_axis = triplet_axis(bool(cfg.triplet_ref_axis))
+        # the reference-exact triplet axis (the reference reduces the
+        # pairwise distance over image W): auto-on when fine-tuning a
+        # .pt-ported released checkpoint, else the channel axis
+        ref_axis = cfg.triplet_ref_axis
+        if ref_axis is None:
+            ref_axis = bool(cfg.pretrain_model_path
+                            and cfg.pretrain_model_path.endswith(".pt"))
+        self.triplet_axis = triplet_axis(ref_axis)
+        self.steps = 0
         self.compute_dtype = (torch.bfloat16 if cfg.feature_precision == "bf16"
                               else torch.float32)
         self._train_poses12 = torch.as_tensor(
@@ -171,10 +176,13 @@ class FeatureTrainer:
         with conv_precision(self.compute_dtype):
             loss, new_state = self.loss_fn(self.params, self.state, targets, rgbs,
                                            poses12, rgb_perturb, pose_perturb12)
+            if self.cfg.check_numerics:
+                check_finite_loss(loss, f"stage-2 step {self.steps}")
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         self.net.state = new_state
         self.adam_update(lr)
+        self.steps += 1
         return loss.detach()
 
     def adam_update(self, lr: float) -> None:

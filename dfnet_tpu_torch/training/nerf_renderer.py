@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from dfnet_tpu_torch.config import Config
+from dfnet_tpu_torch.convert import convert_nerf_checkpoint
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.factory import create_nerfh, render_settings
 from dfnet_tpu_torch.ops.resize import resize_bicubic
@@ -75,8 +76,9 @@ class FrozenNeRF:
     @classmethod
     def from_experiment(cls, cfg: Config, hwf, near, far, world_setup,
                         mesh=None, device=None) -> "FrozenNeRF":
-        """Load the newest stage-1 checkpoint of <basedir>/<expname> (or
-        cfg.ft_path); random weights, with a warning, when there is none."""
+        """Load the newest stage-1 checkpoint of <basedir>/<expname>
+        (NNNNNN.npz, else the reference's NNNNNN.tar) or cfg.ft_path; random
+        weights, with a warning, when there is none."""
         obj = cls(cfg, hwf, near, far, world_setup, mesh=mesh, device=device)
         path = cfg.ft_path
         if not path or path == "None":
@@ -91,13 +93,16 @@ class FrozenNeRF:
         return obj
 
     def load(self, path: str):
+        """Adopt a checkpoint's params: the shared `.npz`, or the
+        reference's `.tar` (convert.py, at depth cfg.netdepth). A `.tar`
+        holds no proposal net, so the kernel renders then place their
+        samples with the coarse net (render/fast.py::FastNeRFH.pack)."""
         if path.endswith(".tar"):
-            raise NotImplementedError(
-                f"{path}: reference .tar checkpoints need the converters, which "
-                "are not ported yet (ROADMAP.md, Queue 1 item 7)")
-        tree, _ = load_pytree(path)
-        self.params = params_from_numpy(tree["params"] if "params" in tree else tree,
-                                        self.device)
+            params, _ = convert_nerf_checkpoint(path, D=self.cfg.netdepth)
+        else:
+            tree, _ = load_pytree(path)
+            params = tree["params"] if "params" in tree else tree
+        self.params = params_from_numpy(params, self.device)
         print(f"[FrozenNeRF] loaded {path}")
 
     # ------------------------------------------------------------- render

@@ -24,9 +24,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dfnet_tpu_torch.config import Config
+from dfnet_tpu_torch.config import Config, check_finite_loss
 from dfnet_tpu_torch.data.loader import epoch_permutation
-from dfnet_tpu_torch.data.png import write_png
+from dfnet_tpu_torch.data.png import write_apng, write_png
 from dfnet_tpu_torch.data.scene import SceneData
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.factory import create_nerfh, render_settings
@@ -62,6 +62,18 @@ from dfnet_tpu_torch.training.checkpoints import (
 
 def exp_decayed_lr(cfg: Config, global_step: int) -> float:
     return cfg.lrate * (0.1 ** (global_step / (cfg.lrate_decay * 1000.0)))
+
+
+def write_video(base: str, frames: np.ndarray, fps: int = 15) -> str:
+    """Write an image sequence as an animated PNG at <base>.png, 15 frames a
+    second by default, and return its path. frames: (N, H, W[, 3]) floats
+    in [0, 1], stored as to8b of each. The JAX package writes the same
+    to8b frames as mp4 through imageio (gif where ffmpeg is missing), both
+    lossy encodings; the GPU machine has neither imageio nor ffmpeg, and an
+    APNG holds the frames exactly, so the container is the only difference."""
+    path = base + ".png"
+    write_apng(path, to8b(frames), fps)
+    return path
 
 
 def named_leaves(tree: Dict, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
@@ -166,6 +178,8 @@ class NeRFTrainer:
         loss, mse = stage1_loss(self.params, self.model, cfg, self.settings,
                                 rays_o, rays_d, target, hist_b, self.gen,
                                 self.uses_fused_train, epoch)
+        if cfg.check_numerics:
+            check_finite_loss(loss, f"the stage-1 step of epoch {epoch} on train image {idx}")
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.adam_update(lr)
@@ -220,17 +234,21 @@ class NeRFTrainer:
         self._render_factor = rf
 
     def render_split(self, split, savedir: Optional[str] = None,
-                     max_images: Optional[int] = None, stride: int = 1) -> float:
+                     max_images: Optional[int] = None, stride: int = 1,
+                     video_base: Optional[str] = None) -> float:
         """Render a split at test settings at epoch global_step (the
         reference's eval epoch: the epochs trained, or the checkpoint's
         step under --render_test); returns the mean PSNR. With savedir,
-        writes <j>.png, <j>_GT.png and <j>_disp.png per view."""
+        writes <j>.png, <j>_GT.png and <j>_disp.png per view (disp over its
+        own max). With video_base, also writes the videos <base>_rgb.png
+        and <base>_disp.png (write_video; disp over the split's max), as
+        --render_video_train / --render_video_test ask."""
         from dfnet_tpu_torch.data.color import downscale_area
 
         idxs = list(range(0, len(split), stride))
         if max_images:
             idxs = idxs[:max_images]
-        psnrs = []
+        psnrs, rgbs, disps = [], [], []
         for j, i in enumerate(idxs):
             pose = torch.as_tensor(split.poses[i], dtype=torch.float32,
                                    device=self.device)
@@ -242,12 +260,19 @@ class NeRFTrainer:
             if self._render_factor != 1:
                 gt = downscale_area(gt, float(self._render_factor))
             psnrs.append(-10.0 * np.log10(np.mean(np.square(rgb - gt))))
+            if video_base:
+                rgbs.append(rgb)
+                disps.append(disp)
             if savedir:
                 os.makedirs(savedir, exist_ok=True)
                 write_png(osp.join(savedir, f"{j:03d}.png"), to8b(rgb))
                 write_png(osp.join(savedir, f"{j:03d}_GT.png"), to8b(gt))
                 write_png(osp.join(savedir, f"{j:03d}_disp.png"),
                           to8b(disp / max(disp.max(), 1e-8)))
+        if video_base and rgbs:
+            write_video(video_base + "_rgb", np.stack(rgbs))
+            d = np.stack(disps)
+            write_video(video_base + "_disp", d / max(d.max(), 1e-8))
         return float(np.mean(psnrs))
 
     # ------------------------------------------------------------- ckpt

@@ -10,12 +10,24 @@ import torch
 
 from dfnet_tpu_torch.cli import nerf as cli
 from dfnet_tpu_torch.config import parse_args
+from dfnet_tpu_torch.data.png import read_apng
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.factory import create_nerfh
 from dfnet_tpu_torch.training.checkpoints import save_pytree
 from dfnet_tpu_torch.training.nerf_trainer import write_png
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These shapes gain nothing from intra-op threads, and test workers that
+    each run a thread a core slow one another down many times over: this
+    module's torch ops run on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_render_test_on_cpu_prints_psnr(tmp_path, capsys):
@@ -34,14 +46,24 @@ def test_render_test_on_cpu_prints_psnr(tmp_path, capsys):
 
 
 def test_spiral_and_video_renders_refuse(tmp_path):
-    """Training is ported; the spiral and video renders of stage 1 are not,
-    and refuse before anything loads."""
+    """The spiral and video renders of stage 1 run (they refused before the
+    converters and view selection were ported): --render_pose_only writes
+    a 120-frame animated PNG, --render_test with --render_video_train and
+    --render_video_test the four split videos, all at JAX's names
+    (tests/test_torch_port_tools.py holds their frames against JAX)."""
     argv = ["--config", "configs/config_synthetic.txt", "--basedir", str(tmp_path),
-            "--device", "cpu"]
-    for flag in ("--render_pose_only", "--render_video_train", "--render_video_test"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.train(argv + [flag])
-    assert not os.path.exists(tmp_path / "nerfh")
+            "--netdepth", "2", "--netwidth", "16", "--netdepth_fine", "2",
+            "--netwidth_fine", "16", "--N_samples", "4", "--N_importance", "4",
+            "--render_factor", "4", "--device", "cpu"]
+    _, params = create_nerfh(parse_args(argv), torch.Generator().manual_seed(3))
+    save_pytree(str(tmp_path / "nerfh" / "000002.npz"), {"params": params}, global_step=2)
+    path = cli.train(argv + ["--render_pose_only"])
+    assert path == str(tmp_path / "nerfh" / "spiral_000002.png")
+    assert read_apng(path).shape == (120, 12, 16, 3)
+    cli.train(argv + ["--render_test", "--render_video_train", "--render_video_test"])
+    for base, n in (("nerfh_trainset_000002_train", 12), ("nerfh_test_000002_test", 4)):
+        for kind in ("rgb", "disp"):
+            assert len(read_apng(str(tmp_path / "nerfh" / f"{base}_{kind}.png"))) == n
 
 
 def test_no_gpu_raises_without_device_cpu(tmp_path):

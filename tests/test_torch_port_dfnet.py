@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from dfnet_tpu.convert import export_dfnet_checkpoint as jax_export_dfnet
 from dfnet_tpu.models import dfnet as jdf
 from dfnet_tpu.models import vgg as jvgg
 from dfnet_tpu.training.checkpoints import save_pytree as jax_save_pytree
@@ -175,7 +176,7 @@ def test_bridge_round_trip_is_bit_exact(nets):
 def test_checkpoints_load_in_both_directions(nets, tmp_path):
     """A JAX-written checkpoint loads through the port's load_dfnet_params,
     a port-written one through JAX's, each with forwards equal to the
-    writer's."""
+    writer's; so does a reference .pt of JAX's exporter."""
     (jp, js, _, _), x = nets[0]["full"], nets[1][:2]
     jpath = str(tmp_path / "jax.npz")
     jax_save_pytree(jpath, {"params": jp, "state": js}, epoch=3)
@@ -189,8 +190,10 @@ def test_checkpoints_load_in_both_directions(nets, tmp_path):
     jp2, js2 = jax_load_dfnet(tpath, jdf.DFNetConfig())
     _, jpose2, _ = jdf.dfnet_forward(jp2, js2, jnp.asarray(x))
     _close(dfnet_forward(p2, s2, _nchw(x))[1], jpose2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        load_dfnet_params(str(tmp_path / "model.pt"))
+    pt = str(tmp_path / "model.pt")
+    jax_export_dfnet(jp, js, pt)
+    p3, s3 = load_dfnet_params(pt)
+    _close(dfnet_forward(p3, s3, _nchw(x))[1], jpose)
 
 
 def test_dfnet_module_holds_the_params_and_state(nets):

@@ -2,11 +2,13 @@
 fine-tunes a checkpoint that the port's stage-2 CLI wrote, printing train
 and val loss and PSNR each epoch and a median error; `--eval` of its best
 checkpoint gives the median error that the JAX package's
-`cli.dm.evaluate` prints for the same file; the flags of later slices
-refuse."""
+`cli.dm.evaluate` prints for the same file; the reference's `.pt` DFNet
+and `.tar` NeRF give the losses of the `.npz` files they were exported
+from; --mesh_shape above 1 refuses."""
 
 import contextlib
 import io
+import json
 import os
 import re
 
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from dfnet_tpu.cli import dm as jax_cli
+from dfnet_tpu_torch import convert
 from dfnet_tpu_torch.cli import dm as cli
 from dfnet_tpu_torch.cli import feature as feature_cli
 from dfnet_tpu_torch.config import parse_args
@@ -113,14 +116,38 @@ def test_eval_of_the_best_checkpoint_gives_jax_median_error(stage3, capsys):
     (["--pretrain_model_path", "dfnet.pt"], "item 7"),
     (["--ft_path", "nerf.tar"], "item 7"),
 ])
-def test_unported_flags_refuse(stage2, tmp_path, flags, item):
+def test_unported_flags_refuse(stage2, stage3, tmp_path, flags, item):
+    """--mesh_shape above 1 (ROADMAP.md Queue 1 item 10) still refuses
+    before anything is written. A `.pt` exported from the stage-2
+    checkpoint (as DFNet F and G) and a `.tar` exported from the stage-1
+    checkpoint (the NeRF, via --ft_path) run (Queue 1 item 7): epoch 0
+    from either gives the losses and PSNRs of epoch 0 from the `.npz`
+    files, bit for bit."""
     base, ckpt = stage2
-    (tmp_path / "nerf.tar").write_bytes(b"")
-    flags = [str(tmp_path / f) if f.endswith((".pt", ".tar")) else f for f in flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
-        cli.main(STAGE3 + ["--basedir", str(tmp_path), "--pretrain_model_path", ckpt,
-                           "--device", "cpu"] + flags)
-    assert not os.path.exists(tmp_path / "dfnetdm")
+    argv = STAGE3 + ["--basedir", str(tmp_path), "--pretrain_model_path", ckpt,
+                     "--device", "cpu"]
+    if item == "item 10":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
+            cli.main(argv + flags)
+        assert not os.path.exists(tmp_path / "dfnetdm")
+        return
+    path = str(tmp_path / flags[1])
+    if path.endswith(".pt"):
+        convert.main([ckpt, path])
+    else:
+        convert.main([str(base / "nerfh" / "000005.npz"), path, "--netdepth", "2"])
+    os.symlink(base / "nerfh", tmp_path / "nerfh")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv + [flags[0], path, "--epochs", "0"])
+    nerf = path if path.endswith(".tar") else str(tmp_path / "nerfh" / "000005.npz")
+    assert f"[FrozenNeRF] loaded {nerf}" in out.getvalue()
+    with open(tmp_path / "dfnetdm" / "metrics.jsonl") as fh:
+        got = [json.loads(line) for line in fh]
+    with open(stage3[2] / "dfnetdm" / "metrics.jsonl") as fh:
+        want = json.loads(fh.readline())
+    keys = ("train_loss", "train_psnr", "val_loss", "val_psnr")
+    assert len(got) == 1 and [got[0][k] for k in keys] == [want[k] for k in keys]
 
 
 def test_no_gpu_raises_without_device_cpu(stage2, tmp_path):

@@ -1,7 +1,8 @@
 """The port's stage-2 CLI on the CPU: the synthetic stage-2 command trains
 and evaluates on a stage-1 checkpoint the test writes, `--eval` of a
-JAX-written DFNet checkpoint gives the JAX package's median error, and the
-flags of later slices refuse."""
+JAX-written DFNet checkpoint gives the JAX package's median error,
+--render_feature_only, a reference `.pt` and --vgg_init_path run, and
+--mesh_shape above 1 refuses."""
 
 import os
 import re
@@ -17,7 +18,9 @@ from dfnet_tpu.training.checkpoints import save_pytree as jax_save_pytree
 from dfnet_tpu.training.feature_trainer import FeatureTrainer as JaxFeatureTrainer
 from dfnet_tpu_torch.cli import feature as cli
 from dfnet_tpu_torch.config import parse_args
+from dfnet_tpu_torch.convert import export_dfnet_checkpoint
 from dfnet_tpu_torch.data.loader import load_scene
+from dfnet_tpu_torch.models.dfnet import dfnet_params_to_jax, init_dfnet_params
 from dfnet_tpu_torch.models.factory import create_nerfh
 from dfnet_tpu_torch.training.checkpoints import load_pytree, save_pytree
 
@@ -87,13 +90,47 @@ def test_eval_of_a_jax_checkpoint_gives_jax_median_error(base, capsys):
 @pytest.mark.parametrize("flags, item", [
     (["--render_feature_only"], "item 6"),
     (["--pretrain_model_path", "dfnet.pt"], "item 7"),
-    (["--vgg_init_path", "vgg16.npz"], "item 7"),
+    (["--vgg_init_path", "vgg16.pth"], "item 7"),
     (["--mesh_shape", "2"], "item 10"),
 ])
-def test_unported_flags_refuse(base, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
-        cli.train(STAGE2 + ["--basedir", str(base), "--device", "cpu"] + flags)
-    assert not os.path.exists(base / "dfnet")
+def test_unported_flags_refuse(base, flags, item, monkeypatch, capsys):
+    """--mesh_shape above 1 (ROADMAP.md Queue 1 item 10) still refuses
+    before anything is written. The flags of items 6 and 7 run:
+    --render_feature_only writes the saliency maps of every train view
+    and its render under ./tmp/features; --eval of a reference .pt prints
+    the median error of the .npz it was exported from; --vgg_init_path
+    starts the encoder from a torchvision VGG16 state dict and trains."""
+    argv = STAGE2 + ["--basedir", str(base), "--device", "cpu"]
+    if item == "item 10":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
+            cli.train(argv + flags)
+        assert not os.path.exists(base / "dfnet")
+        return
+    if flags[0] == "--render_feature_only":
+        monkeypatch.chdir(base)
+        assert cli.train(argv + flags) is None
+        for sub in ("target", "rgb"):
+            assert sorted(os.listdir(base / "tmp" / "features" / sub)) == \
+                [f"{i:04d}.png" for i in range(12)]
+        assert "render features done" in capsys.readouterr().out
+    elif flags[0] == "--pretrain_model_path":
+        p, s = init_dfnet_params(torch.Generator().manual_seed(8))
+        npz, pt = str(base / "dfnet.npz"), str(base / flags[1])
+        save_pytree(npz, dict(zip(("params", "state"), dfnet_params_to_jax(p, s))))
+        export_dfnet_checkpoint(p, s, pt)
+        want = cli.train(argv + ["--eval", "--pretrain_model_path", npz])
+        got = cli.train(argv + ["--eval", "--pretrain_model_path", pt])
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+        assert MEDIAN.findall(capsys.readouterr().out)[-1] == tuple(str(v) for v in got[0])
+    else:
+        from test_torch_port_convert import _vgg16_state_dict
+
+        torch.save(_vgg16_state_dict(), str(base / flags[1]))
+        cli.train(argv + ["--vgg_init_path", str(base / flags[1]), "--epochs", "0"])
+        out = capsys.readouterr().out
+        assert f"ImageNet VGG16 init from {base / flags[1]}" in out
+        assert len(re.findall(r"At epoch +\d+ : train loss", out)) == 1
+        assert any(f.startswith("checkpoint-0000-") for f in os.listdir(base / "dfnet"))
 
 
 def test_no_gpu_raises_without_device_cpu(base):

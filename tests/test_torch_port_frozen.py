@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from dfnet_tpu.config import parse_args as jax_parse_args
+from dfnet_tpu.convert import export_nerf_checkpoint as jax_export_nerf
 from dfnet_tpu.data.synthetic import make_synthetic_scene as jax_scene
 from dfnet_tpu.models.factory import create_nerfh as jax_create_nerfh
 from dfnet_tpu.ops.resize import resize_bicubic as jax_bicubic
 from dfnet_tpu.ops.resize import resize_bilinear_align_corners as jax_bilinear
 from dfnet_tpu.pose import rescale_poses_to_nerf as jax_rescale
+from dfnet_tpu.training.checkpoints import load_pytree as jax_load_pytree
 from dfnet_tpu.training.checkpoints import save_pytree as jax_save_pytree
 from dfnet_tpu.training.nerf_renderer import FrozenNeRF as JaxFrozenNeRF
 from dfnet_tpu_torch.config import parse_args
@@ -121,13 +123,23 @@ def test_prerender_views_matches_jax(exp, tiny, capsys):
 
 
 def test_frozen_nerf_refuses_what_is_not_ported(exp, tmp_path, capsys):
+    """Without a checkpoint: random weights and a warning. A reference .tar
+    loads (the JAX checkpoint's coarse and fine nets and embeddings,
+    exported by JAX's converter; no proposal net). A device mesh still
+    refuses (ROADMAP.md, Queue 1 item 10)."""
     base, sc = exp
     cfg = parse_args(SMALL + ["--basedir", str(tmp_path), "--device", "cpu"],
                      stage="nerf")
     nerf = FrozenNeRF.from_experiment(cfg, sc.hwf, sc.near, sc.far, WORLD)
     assert "random weights" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nerf.load(str(tmp_path / "000001.tar"))
+    tree, _ = jax_load_pytree(str(base / "nerfh" / "000005.npz"))
+    jax_export_nerf(tree["params"], str(tmp_path / "000001.tar"), 5)
+    nerf.load(str(tmp_path / "000001.tar"))
+    assert sorted(nerf.params) == ["coarse", "embedding_a", "embedding_t", "fine"]
+    for k in ("coarse", "fine"):
+        for layer, p in tree["params"][k].items():
+            for leaf, v in p.items():
+                np.testing.assert_array_equal(nerf.params[k][layer][leaf].numpy(), v)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FrozenNeRF(cfg, sc.hwf, sc.near, sc.far, WORLD, mesh=object())
 

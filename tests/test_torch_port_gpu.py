@@ -650,6 +650,42 @@ def test_feature_prerender_and_rvs_launch_the_sweeps(cuda, tmp_path):
         assert nk.LAUNCHES["coarse_sigma_t"] > 0 and nk.LAUNCHES["fine_raw_t"] > 0
 
 
+@pytest.mark.gpu
+def test_tar_loaded_frozen_nerf_renders_through_the_kernels(cuda, tmp_path):
+    """The trained asset exported as a reference .tar (convert.py: no
+    proposal net), loaded by FrozenNeRF.from_experiment: its no-grad
+    renders place samples with the coarse D=8 W=128 net through
+    coarse_sigma_t, run fine_raw_t, and agree with the plain render_fn
+    within 3e-2 (the kernel path's bar)."""
+    import os
+
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.convert import export_nerf_checkpoint
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.training.checkpoints import load_pytree
+    from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tree, _ = load_pytree(os.path.join(root, "assets", "nerfh_synthetic_301.npz"))
+    (tmp_path / "nerfh").mkdir()
+    export_nerf_checkpoint(tree, str(tmp_path / "nerfh" / "000301.tar"), 301)
+    sc = make_synthetic_scene()
+    cfg = parse_args(["--basedir", str(tmp_path), "--expname", "nerfh", "--NeRFH",
+                      "--encode_hist", "--device", "cuda"])
+    nerf = FrozenNeRF.from_experiment(cfg, sc.hwf, sc.near, sc.far, sc.world_setup)
+    assert "proposal" not in nerf.params and nerf.uses_fast_render
+    for i in range(2):
+        nk.reset_launches()
+        got = nerf.render_at_pose(sc.val.poses[i], sc.val.hists[i])
+        torch.cuda.synchronize()
+        assert nk.LAUNCHES["coarse_sigma_t"] > 0 and nk.LAUNCHES["fine_raw_t"] > 0
+        with torch.no_grad():
+            want = nerf.render_fn(nerf.params, torch.tensor(sc.val.poses[i], device=cuda),
+                                  torch.tensor(sc.val.hists[i], device=cuda))
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=TOL_COMP, rtol=TOL_COMP)
+
+
 # ------------------------------------------------------------------ stage 3
 
 @pytest.mark.gpu
