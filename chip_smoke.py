@@ -144,12 +144,32 @@ Phases (any failure exits non-zero):
                equal the split PNGs, disp over the split max);
                --render_feature_only's 2 x n_train PNGs; utils/metrics card
                against CPU; a device_trace naming both kernels;
-               --check_numerics on a NaN leaf. `[tools]` lines.
+               --check_numerics, which must raise FloatingPointError on a
+               NaN in the fine net's rgb bias and on one in a hidden weight
+               (the kernels' ReLU carries NaN). `[tools]` lines;
+  13. models — the alternate models (phase_models): the vanilla NeRF
+               (--NeRFH False) at the shipped widths through the stage-1 CLI
+               (configs/config_nerfh.txt: training, --render_test) and the
+               stage-2 CLI (configs/config_dfnet.txt, one epoch) on a
+               240x320 synthetic scene, launching no kernel; the stage-3 CLI
+               over it must raise NotImplementedError (the JAX package's
+               stage 3 fails there with KeyError); stage-1 losses finite and
+               falling, val PSNR above the seeded init's, the checkpoint
+               reloading to the same render, the card's render against the
+               CPU's (training/parity.py::vanilla_render_agreement); and the
+               backbone zoo (PoseNetV2, EfficientNet-B0/B3, ResNet34 PoseNet
+               and MapNet, autoencoder_vgg1..7) at batch 8 in float32 and
+               bf16 autocast, card against CPU under the CPU tests' bars.
+               `[models]` lines give steps/s, the step by CUDA events, render
+               rays/s, peak memory, the stage-2 pre-render and step, and ms a
+               zoo forward.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -2085,7 +2105,7 @@ def phase_tools(device, handoff: dict):
     (2 x n_train PNGs); utils/metrics ssim and psnr of the val renders, card
     against CPU within 1e-5; a device_trace of one render that names both
     kernels; --check_numerics raising FloatingPointError on a NaN in the
-    fine net's rgb bias (and what a NaN in a hidden weight does)."""
+    fine net's rgb bias and on one in a hidden weight (fine/xyz_0/w)."""
     import torch
 
     from dfnet_tpu_torch import convert
@@ -2317,9 +2337,9 @@ def phase_tools(device, handoff: dict):
     log(f"[tools] utils/metrics of {len(gt)} val renders, card / CPU: {json.dumps(met)}; "
         f"device_trace of one render names {json.dumps(seen)}")
 
-    # --- --check_numerics on a NaN leaf: the fine net's rgb bias reaches the
-    # loss on every path; a NaN in a hidden weight does not get past the
-    # kernels' ReLU (fmaxf maps NaN to 0), so that leaf is reported only
+    # --- --check_numerics on a NaN leaf: a NaN in the fine net's rgb bias
+    # and one in a hidden weight both reach the loss through the kernels,
+    # whose ReLU carries NaN as jnp.maximum does, so both must raise
     numerics = {}
     for tag, layer, idx in (("rgb_bias", "static_rgb", (0,)), ("hidden_w", "xyz_0", (0, 0))):
         tree, scalars = load_pytree(handoff["stage1"])
@@ -2337,12 +2357,291 @@ def phase_tools(device, handoff: dict):
             numerics[tag] = f"FloatingPointError: {e}"
         if torch.is_anomaly_enabled():
             raise SystemExit("[tools] --check_numerics left anomaly mode on")
-    if not numerics["rgb_bias"].startswith("FloatingPointError"):
+    if not all(v.startswith("FloatingPointError") for v in numerics.values()):
         raise SystemExit(f"[tools] --check_numerics let a NaN weight train on: {numerics}")
     out["check_numerics"] = numerics
     log(f"[tools] --check_numerics with a NaN in fine/static_rgb/b and in fine/xyz_0/w: "
         f"{json.dumps(numerics)}")
     out["launches"] = launches
+    return out
+
+
+# phase_models: the vanilla NeRF at the shipped widths on a 240x320 synthetic
+# scene (FEATURE_H x FEATURE_W), cut to MODELS_TRAIN train / MODELS_VAL val
+# views and MODELS_EPOCHS stage-1 epochs so the phase stays near a minute
+MODELS_TRAIN, MODELS_VAL, MODELS_EPOCHS = 20, 4, 10
+ZOO_BATCH = 8
+# (family, input shape): the published layouts at a realistic input, batch
+# ZOO_BATCH; autoencoder_vgg3's transposed-conv decoder needs sides that are
+# multiples of 32, so it runs at 256x320 where the others run at 240x320
+ZOO_CASES = [("posenetv2", (3, 224, 224)), ("posenetv2", (3, 240, 320)),
+             ("efficientnet_b0", (3, 224, 224)), ("efficientnet_b3", (3, 300, 300)),
+             ("resnet34_posenet", (3, 224, 224)), ("mapnet", (3, 3, 224, 224)),
+             *[(f"autoencoder_vgg{v}", (3, 256 if v == 3 else 240, 320))
+               for v in range(1, 8)]]
+
+
+def vanilla_step_breakdown(tr, reps: int = 10) -> dict:
+    """A vanilla stage-1 step by CUDA events: the forward (render and loss),
+    the backward, the Adam update; and the step by the host clock."""
+    import torch
+
+    from dfnet_tpu_torch.render.rays import get_rays
+    from dfnet_tpu_torch.training.nerf_trainer import stage1_loss
+
+    cfg, sc, lr = tr.cfg, tr.scene, tr.cfg.lrate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        tr.train_step(i % len(sc.train), lr)
+    torch.cuda.synchronize()
+    out = {"step_ms": (time.perf_counter() - t0) * 1e3 / reps}
+    parts = {k: [] for k in ("forward_ms", "backward_ms", "adam_ms")}
+    for i in range(reps + 2):
+        ro, rd = get_rays(sc.H, sc.W, sc.focal, tr._poses[i % len(sc.train)])
+        sel = torch.randperm(sc.H * sc.W, generator=tr.gen, device=tr.device)[:cfg.N_rand]
+        target = tr._images[i % len(sc.train)].reshape(-1, 3)[sel]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = stage1_loss(tr.params, tr.model, cfg, tr.settings, ro.reshape(-1, 3)[sel],
+                              rd.reshape(-1, 3)[sel], target, None, tr.gen, False)
+        ev[1].record()
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        tr.adam_update(lr)
+        ev[3].record()
+        ev[3].synchronize()
+        if i >= 2:
+            for k, (a, b) in zip(parts, zip(ev, ev[1:])):
+                parts[k].append(a.elapsed_time(b))
+    out.update({k: float(np.median(v)) for k, v in parts.items()})
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(0, lr)
+    torch.cuda.synchronize()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_models(device):
+    """The alternate models. V-stage1: the port's stage-1 CLI at
+    configs/config_nerfh.txt with --NeRFH False (vanilla NeRF, D=8 W=128
+    coarse and fine, skip 4, PE 10/4, 64 + 64 samples, 1536 rays a step)
+    from a seeded init on a 240x320 synthetic scene, epochs
+    0..MODELS_EPOCHS, then --render_test; V-stage2: the stage-2 CLI at
+    configs/config_dfnet.txt with --NeRFH False for one epoch from that
+    checkpoint; V-stage3: the stage-3 CLI at configs/config_dfnetdm.txt
+    over the same NeRF must raise NotImplementedError; Z-zoo: each backbone
+    family (ZOO_CASES, training/parity.py::zoo_model) at batch ZOO_BATCH in float32
+    (TF32 off) and bf16 autocast. Checks: no kernel launched on any vanilla
+    path (the kernels serve NeRF-H alone, as in the JAX package); stage-1
+    losses finite and falling, val PSNR above the seeded init's, the
+    checkpoint reloading to the same render bit for bit, the card's render
+    of a val view against the CPU's (parity.vanilla_render_agreement);
+    stage-2 losses finite; each zoo family card against CPU under the CPU
+    tests' bars (parity.zoo_agreement, on the batch's first input). Figures:
+    steps/s, the step by CUDA events, render rays/s, peak memory; the
+    pre-render s and the stage-2 step ms; ms a zoo forward and its peak
+    memory in both precisions."""
+    import torch
+
+    from dfnet_tpu_torch.cli import dm as dm_cli
+    from dfnet_tpu_torch.cli import feature as feature_cli
+    from dfnet_tpu_torch.cli import nerf as nerf_cli
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.models.layers import tree_to
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.render.rays import get_rays
+    from dfnet_tpu_torch.training import parity
+    from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
+    from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+    from dfnet_tpu_torch.utils.timing import cuda_ms
+
+    scene = make_synthetic_scene(n_train=MODELS_TRAIN, n_val=MODELS_VAL, H=FEATURE_H,
+                                 W=FEATURE_W, focal=FEATURE_FOCAL, seed=0, device=device)
+    cfgdir = ROOT / "configs"
+    out, launches = {}, {}
+    s1_trainers, s1_epochs, s2 = [], [], {"steps": []}
+    orig_epoch = NeRFTrainer.train_epoch
+
+    def timed_epoch(self, epoch):
+        t0 = time.perf_counter()
+        res = orig_epoch(self, epoch)
+        s1_epochs.append(dict(epoch=epoch, seconds=time.perf_counter() - t0,
+                              steps=len(self.scene.train)))
+        if self not in s1_trainers:
+            s1_trainers.append(self)
+        return res
+
+    class Timed2(FeatureTrainer):
+        def prerender_train_views(self):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = FeatureTrainer.prerender_train_views(self)
+            s2["prerender_s"] = time.perf_counter() - t
+            return res
+
+        def train_step(self, *a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = FeatureTrainer.train_step(self, *a)
+            ev[1].record()
+            ev[1].synchronize()
+            s2["steps"].append(ev[0].elapsed_time(ev[1]))
+            return res
+
+    with tempfile.TemporaryDirectory() as base:
+        s1 = ["--config", str(cfgdir / "config_nerfh.txt"), "--NeRFH", "False",
+              "--dataset_type", "synthetic", "--basedir", base, "--device", str(device)]
+        init = NeRFTrainer(parse_args(s1, stage="nerf"), scene)
+        if type(init.model).__name__ != "VanillaNeRFModel" or init.uses_fused_train:
+            raise SystemExit("[models] --NeRFH False did not build the vanilla pair")
+        cfg1 = init.cfg
+        log(f"[models] V-stage1 net: D={cfg1.netdepth} W={cfg1.netwidth} fine "
+            f"D={cfg1.netdepth_fine} W={cfg1.netwidth_fine}, {cfg1.N_samples} + "
+            f"{cfg1.N_importance} samples, {cfg1.N_rand} rays a step, "
+            f"{len(scene.train)} train / {len(scene.val)} val views of "
+            f"{scene.H}x{scene.W}")
+        psnr_init = init.render_split(scene.val)
+        del init
+        orig_load = nerf_cli.load_scene, feature_cli.load_scene, dm_cli.load_scene
+        nerf_cli.load_scene = feature_cli.load_scene = dm_cli.load_scene = (
+            lambda cfg, stage="nerf": scene)
+        NeRFTrainer.train_epoch = timed_epoch
+        orig_ft = feature_cli.FeatureTrainer
+        feature_cli.FeatureTrainer = Timed2
+        try:
+            # --- V-stage1: train, then --render_test
+            nk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nerf_cli.train(s1 + ["--epochs", str(MODELS_EPOCHS), "--i_weights",
+                                 str(MODELS_EPOCHS), "--i_testset", str(MODELS_EPOCHS + 1)])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            psnr = nerf_cli.train(s1 + ["--render_test"])
+            torch.cuda.synchronize()
+            render_s = time.perf_counter() - t0
+            launches["models_stage1"] = dict(nk.LAUNCHES)
+            exp = Path(base) / "nerfh"
+            with open(exp / "metrics.jsonl") as fh:
+                loss = [json.loads(line)["loss"] for line in fh]
+            tr = s1_trainers[0]
+            steady = s1_epochs[1:]
+            steps_per_s = (sum(e["steps"] for e in steady)
+                           / sum(e["seconds"] for e in steady))
+            n_rays = (len(scene.train) + len(scene.val)) * scene.H * scene.W
+            # the checkpoint reloads to the same render, and the card's render
+            # of a val view (a quarter of its sides) agrees with the CPU's
+            pose = torch.as_tensor(scene.val.poses[0], device=device)
+            hist = torch.as_tensor(scene.val.hists[0], device=device)
+            again = NeRFTrainer(parse_args(s1, stage="nerf"), scene)
+            again.try_resume()
+            same = all(torch.equal(tr._render(tr.params, pose, hist, 0)[k],
+                                   again._render(again.params, pose, hist, 0)[k])
+                       for k in ("rgb", "disp", "acc"))
+            ro, rd = get_rays(scene.H // 4, scene.W // 4, scene.focal / 4, pose.cpu())
+            cpu_params = {k: {q: {r: t.detach().cpu() for r, t in v.items()}
+                              for q, v in net.items()} for k, net in tr.params.items()}
+            agree_ok, agree = parity.vanilla_render_agreement(
+                cpu_params, tr.model, ro.reshape(-1, 3), rd.reshape(-1, 3),
+                tr.settings_test, device)
+            breakdown = vanilla_step_breakdown(tr)      # trains on: after the checks
+            v1 = dict(train_s=train_s, steps_per_s=steps_per_s, loss_first=loss[0],
+                      loss_last=loss[-1], val_psnr_init=psnr_init, val_psnr=psnr,
+                      render_test_s=render_s, render_rays_per_s=n_rays / render_s,
+                      reload_same_render=same, cpu_agreement=agree, **breakdown)
+            log(f"[models] V-stage1: {len(s1_epochs)} epochs, {steps_per_s:.2f} steps/s "
+                f"(host clock, epochs 1-{s1_epochs[-1]['epoch']}); loss {loss[0]:.5f} -> "
+                f"{loss[-1]:.5f}; val PSNR {psnr_init:.4f} (seeded init) -> {psnr:.4f} dB; "
+                f"--render_test of {n_rays:,} rays (train and val splits) {render_s:.2f} s "
+                f"by the host clock, set-up included: {n_rays / render_s:,.0f} rays/s; step "
+                f"(ms) {json.dumps(breakdown)}; reload same render {same}; card vs CPU "
+                f"{json.dumps(agree)}; launches {launches['models_stage1']}")
+            if (any(launches["models_stage1"].values()) or not np.all(np.isfinite(loss))
+                    or not np.mean(loss[-3:]) < np.mean(loss[:3]) or not psnr > psnr_init
+                    or not same or not agree_ok):
+                raise SystemExit(f"[models] V-stage1 failed: {json.dumps(v1)}")
+            out["stage1"] = v1
+
+            # --- V-stage2: one epoch of the stage-2 CLI from that checkpoint
+            s2_argv = ["--config", str(cfgdir / "config_dfnet.txt"), "--NeRFH", "False",
+                       "--dataset_type", "synthetic", "--basedir", base, "--epochs", "0",
+                       "--i_eval", "1", "--device", str(device)]
+            nk.reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                feature_cli.train(s2_argv)
+            text = buf.getvalue()
+            launches["models_stage2"] = dict(nk.LAUNCHES)
+            losses = [float(v) for pair in re.findall(
+                r"train loss: (\S+), val loss: (\S+)", text) for v in pair]
+            v2 = dict(prerender_s=s2.get("prerender_s"),
+                      step_ms=float(np.median(s2["steps"])) if s2["steps"] else None,
+                      losses=losses, loaded="[FrozenNeRF] loaded" in text)
+            log(f"[models] V-stage2: pre-render {v2['prerender_s']:.3f} s for "
+                f"{len(scene.train)} views, step {v2['step_ms']:.2f} ms (median of "
+                f"{len(s2['steps'])}, CUDA events), losses {losses}; launches "
+                f"{launches['models_stage2']}")
+            if (any(launches["models_stage2"].values()) or not v2["loaded"]
+                    or len(losses) != 2 or not np.all(np.isfinite(losses))):
+                raise SystemExit(f"[models] V-stage2 failed: {json.dumps(v2)}\n{text}")
+            out["stage2"] = v2
+
+            # --- V-stage3: the stage-3 CLI over the vanilla NeRF must refuse
+            ckpt = sorted((Path(base) / "dfnet").glob("checkpoint-*.npz"))[-1]
+            s3_argv = ["--config", str(cfgdir / "config_dfnetdm.txt"), "--NeRFH", "False",
+                       "--dataset_type", "synthetic", "--basedir", base,
+                       "--pretrain_model_path", str(ckpt), "--pretrain_featurenet_path",
+                       str(ckpt), "--epochs", "0", "--device", str(device)]
+            nk.reset_launches()
+            try:
+                dm_cli.train(s3_argv)
+                raise SystemExit("[models] V-stage3: stage 3 over a vanilla NeRF ran")
+            except NotImplementedError as e:
+                out["stage3"] = f"NotImplementedError: {e}"
+            launches["models_stage3"] = dict(nk.LAUNCHES)
+            log(f"[models] V-stage3: {out['stage3']}")
+        finally:
+            nerf_cli.load_scene, feature_cli.load_scene, dm_cli.load_scene = orig_load
+            NeRFTrainer.train_epoch = orig_epoch
+            feature_cli.FeatureTrainer = orig_ft
+
+    # --- Z-zoo: each family's forward at batch ZOO_BATCH
+    nk.reset_launches()
+    zoo = []
+    for name, shape in ZOO_CASES:
+        x = torch.rand((ZOO_BATCH, *shape), generator=torch.Generator().manual_seed(0))
+        ok, ratio = parity.zoo_agreement(name, x[:1], device)
+        params, state, forward = parity.zoo_model(name, torch.Generator().manual_seed(0))
+        params, state, xd = tree_to(params, device), tree_to(state, device), x.to(device)
+        row = dict(name=name, input=list(x.shape), card_vs_cpu=ratio)
+        for prec in ("float32", "bf16"):
+            def run():
+                with torch.no_grad(), torch.autocast("cuda", torch.bfloat16,
+                                                     enabled=prec == "bf16"):
+                    return forward(params, state, xd)
+            with parity.no_tf32():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                outs = run()
+                if not all(torch.isfinite(o).all() for o in outs):
+                    raise SystemExit(f"[models] {name} {prec}: non-finite output")
+                row[f"{prec}_ms"] = cuda_ms(run, reps=5)
+                row[f"{prec}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        zoo.append(row)
+        log(f"[models] Z-zoo {name} {tuple(x.shape)}: float32 {row['float32_ms']:.3f} ms, "
+            f"bf16 {row['bf16_ms']:.3f} ms a forward (CUDA events); peak "
+            f"{row['float32_peak_gb']:.2f} / {row['bf16_peak_gb']:.2f} GB; card vs CPU "
+            f"{ratio:.3f} of its bar")
+        if not ok:
+            raise SystemExit(f"[models] Z-zoo {name}: card vs CPU at {ratio:.3f} of its bar")
+    launches["models_zoo"] = dict(nk.LAUNCHES)
+    if any(launches["models_zoo"].values()):
+        raise SystemExit(f"[models] the zoo launched a kernel: {launches['models_zoo']}")
+    out.update(zoo=zoo, launches=launches)
     return out
 
 
@@ -2396,6 +2695,7 @@ def main() -> int:
     finally:
         shutil.rmtree(handoff["root"], ignore_errors=True)
     cases += feature["cases"]
+    models = timed(phase_models, device)
 
     # each kernel's row: its case on the main path it was ported for, and
     # the launches of every main path, each counted from 0 over its run
@@ -2419,7 +2719,8 @@ def main() -> int:
                      "feature": feature["launches"],
                      "dm": dm["launches"],
                      "sevenscenes": seven["launches"],
-                     **{f"tools_{k}": v for k, v in tools["launches"].items()}}
+                     **{f"tools_{k}": v for k, v in tools["launches"].items()},
+                     **models["launches"]}
     kernels = []
     for name, (asset, sched, path) in main_case.items():
         c = next(c for c in cases if c["name"] == name and c["asset"] == asset
@@ -2444,6 +2745,7 @@ def main() -> int:
     log(json.dumps({"dm": dm}))
     log(json.dumps({"sevenscenes": seven}))
     log(json.dumps({"tools": tools}))
+    log(json.dumps({"models": {k: v for k, v in models.items() if k != "launches"}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

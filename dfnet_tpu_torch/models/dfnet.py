@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as Fn
 
+from dfnet_tpu_torch.models.layers import params_from_jax, params_to_jax
 from dfnet_tpu_torch.models.vgg import (
     VGG16_LAYOUT,
     _torch_conv_init,
@@ -239,33 +240,14 @@ class DFNet(nn.Module):
 # weight bridge: the JAX package's trees (HWIO convs, fc_pose.w (512, 12))
 # ---------------------------------------------------------------------------
 
-def _np(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _relayout(tree, conv_axes, leaf):
-    """Map a DFNet tree leaf by leaf; the `w` of a layer is transposed
-    (conv_axes for a 4-D conv weight, .T for fc_pose)."""
-    if not isinstance(tree, dict):
-        return leaf(_np(tree))
-    out = {k: _relayout(v, conv_axes, leaf) for k, v in tree.items() if k != "w"}
-    if "w" in tree:
-        w = _np(tree["w"])
-        out["w"] = leaf(np.ascontiguousarray(np.transpose(w, conv_axes) if w.ndim == 4
-                                             else w.T))
-    return out
-
-
 def dfnet_params_from_jax(params: Dict, state: Dict, device="cpu") -> Tuple[Dict, Dict]:
     """The JAX package's DFNet (params, state) trees -> the port's, as
     tensors on `device`: conv w HWIO -> OIHW, fc_pose.w transposed, every
     other leaf (biases, bn_scale/bn_bias, running mean/var) as it is."""
-    to_t = lambda a: torch.tensor(a, device=device)
-    return _relayout(params, (3, 2, 0, 1), to_t), _relayout(state, None, to_t)
+    return params_from_jax(params, device), params_from_jax(state, device)
 
 
 def dfnet_params_to_jax(params: Dict, state: Dict) -> Tuple[Dict, Dict]:
     """Inverse of dfnet_params_from_jax: numpy trees in the JAX package's
     layout (the checkpoint format both packages read)."""
-    return (_relayout(params, (2, 3, 1, 0), np.array),
-            _relayout(state, None, np.array))
+    return params_to_jax(params), params_to_jax(state)

@@ -1,37 +1,40 @@
 """Model factory: the NeRF-H bundle (coarse + fine + embeddings + the
-optional proposal sampler) from a Config (port of
-dfnet_tpu/models/factory.py, with the same param names and shapes)."""
+optional proposal sampler), or with NeRFH=False the vanilla-NeRF pair,
+from a Config (port of dfnet_tpu/models/factory.py, with the same param
+names and shapes)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from dfnet_tpu_torch.config import Config
 from dfnet_tpu_torch.models.embedder import get_embedder
+from dfnet_tpu_torch.models.nerf_vanilla import VanillaNeRFConfig, init_nerf_params
 from dfnet_tpu_torch.models.nerfw import (
     NeRFWConfig,
     init_embeddings,
     init_nerfw_params,
     init_sigma_mlp,
 )
-from dfnet_tpu_torch.render.volume import NeRFHModel, RenderSettings
+from dfnet_tpu_torch.render.volume import NeRFHModel, RenderSettings, VanillaNeRFModel
 
 
 def create_nerfh(cfg: Config, gen: Optional[torch.Generator] = None,
-                 device="cpu") -> Tuple[NeRFHModel, Dict]:
-    """Returns (static model description, param tree on `device`)."""
-    if not cfg.NeRFH:
-        raise NotImplementedError(
-            "vanilla NeRF (NeRFH=False) is not ported yet (ROADMAP.md, "
-            "Queue 1 'Alternate models')")
+                 device="cpu") -> Tuple[Union[NeRFHModel, VanillaNeRFModel], Dict]:
+    """Returns (static model description, param tree on `device`): the
+    NeRF-H bundle, or with NeRFH=False the vanilla-NeRF pair (the
+    reference's create_nerf dispatch). Params are drawn from `gen` (a CPU
+    generator seeded with cfg.rng_seed by default)."""
     if gen is None:
         gen = torch.Generator().manual_seed(cfg.rng_seed)
     embed_xyz = get_embedder(cfg.multires, cfg.i_embed, cfg.reduce_embedding,
                              cfg.epochToMaxFreq, input_dims=3)
     embed_dir = get_embedder(cfg.multires_views, cfg.i_embed, cfg.reduce_embedding,
                              cfg.epochToMaxFreq, input_dims=3)
+    if not cfg.NeRFH:
+        return _create_vanilla(cfg, gen, device, embed_xyz, embed_dir)
     dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
     cfg_coarse = NeRFWConfig(
         D=cfg.netdepth, W=cfg.netwidth, in_xyz=embed_xyz.out_dim,
@@ -72,6 +75,23 @@ def create_nerfh(cfg: Config, gen: Optional[torch.Generator] = None,
                        cfg_proposal=cfg_proposal,
                        embed_proposal=embed_proposal)
     return model, params
+
+
+def _create_vanilla(cfg: Config, gen: torch.Generator, device, embed_xyz, embed_dir):
+    """The vanilla pair: no proposal net and no embeddings. output_ch is 5
+    when there is a fine net, as in the reference (5 outputs, 4 read)."""
+    dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+    out_ch = 5 if cfg.N_importance > 0 else 4
+    cfg_c, cfg_f = (VanillaNeRFConfig(
+        D=D, W=W, in_xyz=embed_xyz.out_dim, in_dir=embed_dir.out_dim,
+        use_viewdirs=cfg.use_viewdirs, output_ch=out_ch, compute_dtype=dtype)
+        for D, W in ((cfg.netdepth, cfg.netwidth),
+                     (cfg.netdepth_fine, cfg.netwidth_fine)))
+    params = {"coarse": init_nerf_params(gen, cfg_c, device)}
+    if cfg.N_importance > 0:
+        params["fine"] = init_nerf_params(gen, cfg_f, device)
+    return VanillaNeRFModel(cfg_coarse=cfg_c, cfg_fine=cfg_f, embed_xyz=embed_xyz,
+                            embed_dir=embed_dir), params
 
 
 def render_settings(cfg: Config, near: float, far: float,

@@ -1,8 +1,10 @@
-"""VGG16 feature encoder (port of dfnet_tpu/models/vgg.py, the VGG16 part).
+"""VGG feature encoders (port of dfnet_tpu/models/vgg.py).
 
 torchvision's vgg16.features layer stack, which the reference uses as the
 DFNet backbone with hypercolumn taps at the conv1_2 / conv3_3 / conv5_3
-outputs: the raw conv outputs, PRE-ReLU.
+outputs: the raw conv outputs, PRE-ReLU. And any VGG layout (VGG19_LAYOUT
+for the autoencoder zoo) tapped POST-op at torch's `features` indices
+(vgg_features_by_index).
 
 Layout: NCHW activations, OIHW conv weights (the JAX package keeps NHWC
 and HWIO; models/dfnet.py bridges the two). The convs are
@@ -29,6 +31,15 @@ VGG16_LAYOUT = [
 
 CONV_NAMES = [e[0] for e in VGG16_LAYOUT if e != "M"]
 
+# torchvision vgg19 config "E" (the autoencoder_vgg3..7 zoo's encoder)
+VGG19_LAYOUT = [
+    ("conv1_1", 64), ("conv1_2", 64), "M",
+    ("conv2_1", 128), ("conv2_2", 128), "M",
+    ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), ("conv3_4", 256), "M",
+    ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), ("conv4_4", 512), "M",
+    ("conv5_1", 512), ("conv5_2", 512), ("conv5_3", 512), ("conv5_4", 512), "M",
+]
+
 # torch features-sequential index of each conv (conv,relu pairs + pools)
 TORCH_CONV_INDEX = {}
 _i = 0
@@ -54,18 +65,31 @@ def _torch_conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int
     return {"w": w.to(device), "b": b.to(device)}
 
 
-def init_vgg16_params(gen: torch.Generator, device="cpu") -> Dict:
+def init_vgg_params(gen: torch.Generator, layout, device="cpu") -> Dict:
+    """Conv params for any VGG layout (16 or 19), torch's default init."""
     params = {}
     cin = 3
-    for name, cout in [e for e in VGG16_LAYOUT if e != "M"]:
+    for name, cout in [e for e in layout if e != "M"]:
         params[name] = _torch_conv_init(gen, 3, 3, cin, cout, device)
         cin = cout
     return params
 
 
-def conv2d(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 'SAME' conv of an NCHW tensor with odd square kernels."""
-    return Fn.conv2d(x, p["w"], p["b"], padding=p["w"].shape[-1] // 2)
+def init_vgg16_params(gen: torch.Generator, device="cpu") -> Dict:
+    return init_vgg_params(gen, VGG16_LAYOUT, device)
+
+
+def conv2d(p: Dict, x: torch.Tensor, stride: int = 1, padding="SAME") -> torch.Tensor:
+    """Conv of an NCHW tensor with square kernels: padding 'SAME' (stride 1,
+    odd kernels: k // 2 a side), 'VALID', or a symmetric int."""
+    k = p["w"].shape[-1]
+    if padding == "SAME":
+        if stride != 1 or k % 2 == 0:
+            raise ValueError("'SAME' here is stride 1 with an odd kernel")
+        padding = k // 2
+    elif padding == "VALID":
+        padding = 0
+    return Fn.conv2d(x, p["w"], p["b"], stride=stride, padding=padding)
 
 
 def maxpool2(x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +117,32 @@ def vgg16_features(params: Dict, x: torch.Tensor, taps: Sequence[str] = (),
                 return x, got
         x = torch.relu(x)
     return x, got
+
+
+def vgg_features_by_index(params: Dict, x: torch.Tensor, layout,
+                          tap_indices: Sequence[int]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Run a VGG features stack, tapping POST-op outputs at the given torch
+    features indices (conv, ReLU pairs, then pools: index 3 is the ReLU
+    after conv1_2). Returns (final pre-classifier tensor, taps in request
+    order)."""
+    want = set(tap_indices)
+    got = {}
+    i = 0
+    for entry in layout:
+        if entry == "M":
+            x = maxpool2(x)
+            if i in want:
+                got[i] = x
+            i += 1
+            continue
+        x = conv2d(params[entry[0]], x)
+        if i in want:
+            got[i] = x
+        x = torch.relu(x)
+        if i + 1 in want:
+            got[i + 1] = x
+        i += 2
+    return x, [got[j] for j in tap_indices]
 
 
 def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:

@@ -247,7 +247,15 @@ __device__ inline void mma(int (&d)[128], uint64_t a, uint64_t b, int scale) {
 
 // ---- requantisation and the in-place epilogue -----------------------------
 
-__device__ inline bf16 requant(float v) { return __float2bfloat16(fmaxf(v, 0.f)); }
+// bf16 ReLU: max.NaN.f32 returns NaN for a NaN v, as jnp.maximum(v, 0)
+// does in the probe's _kernel_bf16, and otherwise what max.f32 (the
+// instruction fmaxf compiles to) returns, so every other v keeps its bits.
+__device__ inline float relu_nan(float v) {
+  float y;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(y) : "f"(v));
+  return y;
+}
+__device__ inline bf16 requant(float v) { return __float2bfloat16(relu_nan(v)); }
 __device__ inline int8_t requant(int v) { return (int8_t)min(max(v >> 7, 0), 127); }
 __device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ inline float to_f32(int8_t v) { return (float)v; }
@@ -262,7 +270,7 @@ __device__ inline void store_pair(uint32_t tile, int warp, int lane, int j, int 
   const int r = 16 * warp + lane / 4 + 8 * h;
   const uint32_t at = tile + (j / 8) * ATOM + r * PANEL + (((j % 8) ^ (r % 8)) << 4) +
                       (lane % 4) * 4;
-  const __nv_bfloat162 p = __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+  const __nv_bfloat162 p = __floats2bfloat162_rn(relu_nan(v0), relu_nan(v1));
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
                "r"(*reinterpret_cast<const uint32_t*>(&p))
                : "memory");

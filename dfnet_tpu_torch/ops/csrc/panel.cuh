@@ -26,6 +26,15 @@ using namespace dfn;
 
 constexpr int KP = 64;       // weight panel width (reduction slice)
 
+// The forward epilogue's ReLU: max.NaN.f32 returns NaN for a NaN x, as
+// jnp.maximum(x, 0) and torch.relu do, and otherwise what max.f32 (the
+// instruction fmaxf compiles to) returns, so every other x keeps its bits.
+__device__ inline float relu_nan(float x) {
+  float y;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Offset of trunk layer i's first matrix in the packed weights (i >= 1;
 // i == D gives the end of the trunk).
 __host__ __device__ inline size_t trunk_off(const Dims& dm, int i) {
@@ -238,7 +247,7 @@ __device__ void panel_layer(const bf16* in1, int ld1, int K1, const bf16* W1,
         for (int e = 0; e < 8; ++e) {
           float x = v[e] + bv[e];
           if (ray >= 0) x += dv[e];
-          o[e] = __float2bfloat16(fmaxf(x, 0.f));
+          o[e] = __float2bfloat16(relu_nan(x));
         }
       } else {
         __align__(16) bf16 m[8];

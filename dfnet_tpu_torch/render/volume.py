@@ -1,4 +1,4 @@
-"""Volume rendering (port of dfnet_tpu/render/volume.py, NeRF-H only).
+"""Volume rendering (port of dfnet_tpu/render/volume.py).
 
 NeRF-W compositing (1e2 terminal delta, no ray-norm scaling of deltas,
 shifted-cumprod transmittance; at test time rgb stays the static +
@@ -7,16 +7,23 @@ coarse -> fine pipeline at train and test settings. This is the plain
 renderer that `render/fast.py::fast_path_supported` and
 `render/fused_train.py::fused_train_supported` fall back to; it is
 differentiable in the params and the rays.
+
+The vanilla NeRF (NeRFH=False) has its own compositing (composite_vanilla:
+1e10 terminal delta, deltas scaled by |rays_d|) and pipeline
+(render_rays_vanilla); the full-image renders dispatch on the model. No
+kernel serves it: the kernel gates take NeRFHModel only, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from dfnet_tpu_torch.models.embedder import Embedder
+from dfnet_tpu_torch.models.nerf_vanilla import VanillaNeRFConfig, nerf_apply_rays
 from dfnet_tpu_torch.models.nerfw import (
     NeRFWConfig,
     lookup_hist_embedding,
@@ -218,6 +225,92 @@ def render_rays(params: Dict, model: NeRFHModel, rays_o: torch.Tensor,
     return out
 
 
+def composite_vanilla(raw, z_vals, rays_d, raw_noise: Optional[torch.Tensor] = None,
+                      white_bkgd: bool = False) -> Dict:
+    """Original-NeRF compositing of raw outputs (N, S, >=4): 1e10 terminal
+    delta, deltas scaled by |rays_d|, sigmoid rgb, relu(sigma + noise),
+    1 - alpha + 1e-10 in the transmittance product."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, 1e10 * torch.ones_like(dists[..., :1])], -1)
+    dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
+    rgb = torch.sigmoid(raw[..., :3])
+    sig = raw[..., 3]
+    if raw_noise is not None:
+        sig = sig + raw_noise
+    alpha = 1.0 - torch.exp(-torch.relu(sig) * dists)
+    trans = torch.cumprod(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1), -1
+    )[..., :-1]
+    weights = alpha * trans
+    rgb_map = (weights[..., None] * rgb).sum(-2)
+    depth = (weights * z_vals).sum(-1)
+    acc = weights.sum(-1)
+    disp = 1.0 / torch.clamp(depth / torch.clamp(acc, min=1e-10), min=1e-10)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc[..., None])
+    return {"rgb": rgb_map, "disp": disp, "acc": acc, "weights": weights, "depth": depth}
+
+
+@dataclass(frozen=True)
+class VanillaNeRFModel:
+    """Static description of the non-NeRFH (vanilla NeRF) pair; params live
+    in a separate tree {'coarse'[, 'fine']}. It has no proposal sampler."""
+    cfg_coarse: VanillaNeRFConfig
+    cfg_fine: VanillaNeRFConfig
+    embed_xyz: Embedder
+    embed_dir: Embedder
+    cfg_proposal = None
+
+
+def vanilla_pass(params: Dict, cfg: VanillaNeRFConfig, embed_xyz: Embedder,
+                 rays_o: torch.Tensor, rays_d: torch.Tensor, z: torch.Tensor,
+                 dir_emb: torch.Tensor, settings: RenderSettings,
+                 gen: Optional[torch.Generator] = None,
+                 epoch: Optional[float] = None) -> Dict:
+    """One net of the vanilla pair at samples z (N, S): the MLP, sigma noise
+    from `gen` when raw_noise_std > 0, composite_vanilla."""
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    raw = nerf_apply_rays(params, cfg, embed_xyz(pts, epoch), dir_emb)
+    noise = None
+    if settings.raw_noise_std > 0.0 and gen is not None:
+        noise = settings.raw_noise_std * gaussian(raw.shape[:-1], gen, rays_o.device)
+    return composite_vanilla(raw, z, rays_d, raw_noise=noise, white_bkgd=settings.white_bkgd)
+
+
+def render_rays_vanilla(params: Dict, model: VanillaNeRFModel, rays_o: torch.Tensor,
+                        rays_d: torch.Tensor, settings: RenderSettings,
+                        gen: Optional[torch.Generator] = None,
+                        epoch: Optional[float] = None) -> Dict:
+    """The original-NeRF coarse -> fine pipeline: stratified z (jittered
+    when perturb > 0), the coarse composite with sigma noise, importance
+    samples from its weights (deterministic when perturb == 0), then the
+    fine net over the sorted union. Random draws come from `gen` in that
+    order: the jitter, the coarse noise, the samples, the fine noise. Fine
+    z samples carry no gradient. `epoch` as in render_rays."""
+    n = rays_o.shape[0]
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    near = torch.full((n, 1), settings.near, device=rays_o.device)
+    far = torch.full((n, 1), settings.far, device=rays_o.device)
+    z_vals = stratified_z_vals(near, far, settings.N_samples, gen,
+                               settings.lindisp, settings.perturb)
+    dir_emb = model.embed_dir(viewdirs, epoch)
+    comp_c = vanilla_pass(params["coarse"], model.cfg_coarse, model.embed_xyz, rays_o,
+                          rays_d, z_vals, dir_emb, settings, gen, epoch)
+    keys = ("rgb", "disp", "acc", "depth")
+    if settings.N_importance <= 0:
+        return {k: comp_c[k] for k in keys}
+    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    z_samples = sample_pdf(z_mid, comp_c["weights"][..., 1:-1], settings.N_importance,
+                           gen, det=(settings.perturb == 0.0))
+    z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
+    comp_f = vanilla_pass(params["fine"], model.cfg_fine, model.embed_xyz, rays_o, rays_d,
+                          z_all, dir_emb, settings, gen, epoch)
+    out = {k: comp_f[k] for k in keys}
+    out.update(rgb0=comp_c["rgb"], disp0=comp_c["disp"], acc0=comp_c["acc"],
+               z_std=torch.std(z_samples, -1, correction=0))
+    return out
+
+
 def chunked_rays(H: int, W: int, focal: float, c2w: torch.Tensor, chunk: int):
     """Flattened rays of one view, padded to a multiple of `chunk`
     (origins 0, directions 1 on the pad) and split into chunks."""
@@ -240,23 +333,29 @@ def gather_image(outs, n: int, H: int, W: int) -> Dict:
     return res
 
 
-def render_image_grad(params: Dict, model: NeRFHModel, c2w: torch.Tensor,
-                      hist: torch.Tensor, H: int, W: int, focal: float,
-                      settings: RenderSettings, chunk: int = 1024 * 8,
+def render_image_grad(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel],
+                      c2w: torch.Tensor, hist: torch.Tensor, H: int, W: int,
+                      focal: float, settings: RenderSettings, chunk: int = 1024 * 8,
                       epoch: Optional[float] = None) -> Dict:
     """Full-image render: flatten rays, pad to a chunk multiple and render
-    fixed-size chunks in turn (the reference's batchify_rays). Autograd
-    stays on: the result is differentiable in c2w and the params (stage
-    3's pose gradients). `epoch` as in render_rays."""
+    fixed-size chunks in turn (the reference's batchify_rays), through
+    render_rays_vanilla for a vanilla model (which reads no hist) and
+    render_rays otherwise. Autograd stays on: the result is differentiable
+    in c2w and the params (stage 3's pose gradients). `epoch` as in
+    render_rays."""
     n, ro, rd = chunked_rays(H, W, focal, c2w, chunk)
-    hist_b = hist[None].expand((chunk,) + hist.shape)
-    outs = [render_rays(params, model, o, d, hist_b, settings, epoch=epoch)
-            for o, d in zip(ro, rd)]
+    if isinstance(model, VanillaNeRFModel):
+        outs = [render_rays_vanilla(params, model, o, d, settings, epoch=epoch)
+                for o, d in zip(ro, rd)]
+    else:
+        hist_b = hist[None].expand((chunk,) + hist.shape)
+        outs = [render_rays(params, model, o, d, hist_b, settings, epoch=epoch)
+                for o, d in zip(ro, rd)]
     return gather_image(outs, n, H, W)
 
 
 @torch.no_grad()
-def render_image(params: Dict, model: NeRFHModel, c2w: torch.Tensor,
+def render_image(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel], c2w: torch.Tensor,
                  hist: torch.Tensor, H: int, W: int, focal: float,
                  settings: RenderSettings, chunk: int = 1024 * 8,
                  epoch: Optional[float] = None) -> Dict:

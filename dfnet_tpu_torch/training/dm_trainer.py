@@ -14,7 +14,10 @@ The renders of this stage run no CUDA kernel: the kernels' train path
 (render/fused_train.py::RawSweep) returns no cotangents for the rays, so
 a pose gradient must go through the plain render_rays, as in the JAX
 package. G's and the NeRF's tensors do not require grad, so backward
-builds no gradient for them.
+builds no gradient for them. A vanilla NeRF (NeRFH=False) raises
+NotImplementedError when the trainer is built, where the JAX package's
+stage 3 fails with KeyError; mending it would be a feature that package
+lacks.
 
 `--dm_batch_size K > 1`: K images a step, their rays one stream through
 FrozenNeRF.render_fn_batch, one Adam update on the mean of the per-image
@@ -87,6 +90,13 @@ class DMTrainer:
     def __init__(self, cfg: Config, scene: SceneData, nerf: FrozenNeRF,
                  device=None, gen: Optional[torch.Generator] = None):
         refuse_unported(cfg)
+        if nerf.is_vanilla:
+            raise NotImplementedError(
+                "stage 3 over a vanilla NeRF (NeRFH=False): the JAX package's DM "
+                "trainer renders through the NeRF-H render_rays "
+                "(dfnet_tpu/training/dm_trainer.py:211-215, and "
+                "dfnet_tpu/training/nerf_renderer.py:141-166 at --dm_batch_size > 1) "
+                "and fails with KeyError (ROADMAP.md, Queue 3)")
         self.cfg = cfg
         self.scene = scene
         self.nerf = nerf

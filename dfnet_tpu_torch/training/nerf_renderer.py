@@ -13,6 +13,11 @@ path: render at 1/tinyscale, then bicubic-upsample to full size.
     differentiable in the pose (stage 3). The kernels' train path returns
     no cotangents for the rays, so pose gradients never go through them.
 
+A vanilla NeRF (NeRFH=False) renders through the plain renderer only
+(render_image dispatches on the model; the kernels serve NeRF-H alone, as
+in the JAX package). Where the JAX package fails on one, a `.tar` load
+and render_fn_batch, the port raises NotImplementedError instead.
+
 The JAX package's compile cache (aot_jit) has no counterpart: the kernels
 are built once per source hash by ops/build.py.
 """
@@ -33,7 +38,12 @@ from dfnet_tpu_torch.ops.resize import resize_bicubic
 from dfnet_tpu_torch.pose.se3 import rescale_poses_to_nerf
 from dfnet_tpu_torch.render import fast as fast_mod
 from dfnet_tpu_torch.render.rays import get_rays
-from dfnet_tpu_torch.render.volume import NeRFHModel, render_image_grad, render_rays
+from dfnet_tpu_torch.render.volume import (
+    NeRFHModel,
+    VanillaNeRFModel,
+    render_image_grad,
+    render_rays,
+)
 from dfnet_tpu_torch.training.checkpoints import (
     latest_checkpoint,
     load_pytree,
@@ -72,6 +82,10 @@ class FrozenNeRF:
         self.uses_fast_render = bool(cfg.fast_render and fast_mod.fast_path_supported(
             model, self.settings))
 
+    @property
+    def is_vanilla(self) -> bool:
+        return isinstance(self.model, VanillaNeRFModel)
+
     # ------------------------------------------------------------- loading
     @classmethod
     def from_experiment(cls, cfg: Config, hwf, near, far, world_setup,
@@ -96,7 +110,16 @@ class FrozenNeRF:
         """Adopt a checkpoint's params: the shared `.npz`, or the
         reference's `.tar` (convert.py, at depth cfg.netdepth). A `.tar`
         holds no proposal net, so the kernel renders then place their
-        samples with the coarse net (render/fast.py::FastNeRFH.pack)."""
+        samples with the coarse net (render/fast.py::FastNeRFH.pack). A
+        vanilla model takes no `.tar`: the JAX package converts every `.tar`
+        as NeRF-W, which a vanilla one is not."""
+        if path.endswith(".tar") and self.is_vanilla:
+            raise NotImplementedError(
+                f"{path}: a vanilla-NeRF (NeRFH=False) .tar does not load. The JAX "
+                "package's FrozenNeRF.load converts every .tar as NeRF-W "
+                "(dfnet_tpu/training/nerf_renderer.py:67-71, dfnet_tpu/convert.py:54-72) "
+                "and fails with KeyError on the xyz_encoding_* keys a vanilla .tar "
+                "lacks (ROADMAP.md, Queue 3)")
         if path.endswith(".tar"):
             params, _ = convert_nerf_checkpoint(path, D=self.cfg.netdepth)
         else:
@@ -127,7 +150,16 @@ class FrozenNeRF:
                         hists: torch.Tensor) -> torch.Tensor:
         """(B, 3, 4) poses, (B, hist_bin) hists -> (B, H, W, 3), the batched
         render_fn: the rays of all B views form one stream, rendered in
-        chunks, differentiable in the poses. Per-ray math is render_fn's."""
+        chunks, differentiable in the poses. Per-ray math is render_fn's. A
+        vanilla model raises NotImplementedError, where the JAX package's
+        render_batch_grad calls the NeRF-H render_rays and fails with
+        KeyError."""
+        if self.is_vanilla:
+            raise NotImplementedError(
+                "FrozenNeRF.render_fn_batch over a vanilla NeRF (NeRFH=False): the JAX "
+                "package's render_batch_grad calls the NeRF-H render_rays "
+                "(dfnet_tpu/training/nerf_renderer.py:141-166) and fails with KeyError "
+                "(ROADMAP.md, Queue 3)")
         b, hw = poses_apr.shape[0], self.rh * self.rw
         rays = [get_rays(self.rh, self.rw, self.rf, p) for p in self._to_nerf(poses_apr)]
         ro = torch.stack([o for o, _ in rays]).reshape(-1, 3)

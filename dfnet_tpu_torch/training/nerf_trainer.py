@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,8 +46,10 @@ from dfnet_tpu_torch.render.rays import get_rays
 from dfnet_tpu_torch.render.volume import (
     NeRFHModel,
     RenderSettings,
+    VanillaNeRFModel,
     composite_nerfw,
     render_rays,
+    render_rays_vanilla,
 )
 from dfnet_tpu_torch.training.checkpoints import (
     ADAM_HYPER,
@@ -93,21 +95,24 @@ def _tree_map(fn: Callable, tree: Dict) -> Dict:
             for k, v in tree.items()}
 
 
-def stage1_loss(params: Dict, model: NeRFHModel, cfg: Config,
+def stage1_loss(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel], cfg: Config,
                 settings: RenderSettings, rays_o, rays_d, target, hist,
                 gen: Optional[torch.Generator], fused: bool,
                 epoch: Optional[float] = None):
     """(loss, fine-rgb MSE) of one ray batch: the NeRF-W loss of the
-    kernel (`fused`) or plain render, plus the proposal sampler's bound
+    kernel (`fused`) or plain render (render_rays_vanilla for a vanilla
+    model: no beta, so c_l + f_l), plus the proposal sampler's bound
     loss against the fine weights (which carry no gradient, so only the
     proposal learns from it). `epoch` sets the frequency window of the
     plain render's embedders under --reduce_embedding 2 and is dropped
     otherwise, as in the reference; the kernel render never windows
     (fused_train_supported refuses a windowed embedder)."""
-    if fused:
+    ep = epoch if cfg.reduce_embedding == 2 else None
+    if isinstance(model, VanillaNeRFModel):
+        out = render_rays_vanilla(params, model, rays_o, rays_d, settings, gen, epoch=ep)
+    elif fused:
         out = render_rays_train_fused(params, model, rays_o, rays_d, hist, settings, gen)
     else:
-        ep = epoch if cfg.reduce_embedding == 2 else None
         out = render_rays(params, model, rays_o, rays_d, hist, settings, gen, epoch=ep)
     loss = sum(nerfw_loss(out, target).values())
     if model.cfg_proposal is not None and "proposal" in params and "weights_fine" in out:

@@ -45,6 +45,7 @@ chip_smoke.py and the tests.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Tuple
 
@@ -61,6 +62,7 @@ from dfnet_tpu_torch.models.dfnet import (
     init_dfnet_params,
 )
 from dfnet_tpu_torch.models.factory import create_nerfh
+from dfnet_tpu_torch.ops.tolerances import TOL_Z
 from dfnet_tpu_torch.training.checkpoints import save_pytree
 from dfnet_tpu_torch.training.nerf_trainer import named_leaves
 
@@ -276,3 +278,140 @@ def bf16_agreement(params: Dict, state: Dict, x: torch.Tensor,
         info["grad"][k] = {"cos": cos, "norm_ratio": nb / max(na, 1e-30)}
         ok &= cos > min_cos and abs(nb - na) < BF16_GRAD_NORM * na
     return bool(ok), info
+
+
+# The vanilla NeRF's render, card against CPU in float32 with TF32 off: the
+# coarse pass and the fine pass over the same (the card's) samples within
+# VANILLA_STAGE_TOL; the fine z that sample_pdf draws from the same (the
+# card's) coarse weights within the fine-z bar TOL_Z (the two devices'
+# cumulative sums differ by float32 rounding, and the inverse CDF divides
+# by small CDF steps: 7.6e-4 on the card at the trained checkpoint of
+# chip_smoke.py's phase_models); the whole render at the repo's
+# rendered-rgb bar, since past the sampler float32 rounding moves the fine
+# samples, as it moves JAX's float32 render against a float64 one by up to
+# 1e-2 on a random net (tests/test_torch_port_vanilla.py, RENDER_BARS).
+VANILLA_STAGE_TOL = 1e-4
+VANILLA_RENDER_TOL = 3e-2
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Matmuls and cuDNN convolutions in IEEE float32 inside the block (cuDNN
+    stays on, unlike models/dfnet.py::conv_precision)."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def vanilla_render_agreement(params: Dict, model, rays_o: torch.Tensor,
+                             rays_d: torch.Tensor, settings, device) -> Tuple[bool, Dict]:
+    """(ok, the largest |card - CPU| of each stage and of the whole render)
+    for a vanilla pair at deterministic settings (perturb 0, no noise).
+    params, rays_o and rays_d lie on the CPU."""
+    from dfnet_tpu_torch.models.layers import tree_to
+    from dfnet_tpu_torch.render.sampling import sample_pdf, stratified_z_vals
+    from dfnet_tpu_torch.render.volume import render_rays_vanilla, vanilla_pass
+
+    if settings.perturb != 0.0 or settings.raw_noise_std != 0.0:
+        raise ValueError("the vanilla render agreement needs perturb 0 and no noise")
+    dev = torch.device(device)
+    cpu = torch.device("cpu")
+    args = {d: (tree_to(params, d), rays_o.to(d), rays_d.to(d)) for d in (cpu, dev)}
+    keys = ("rgb", "acc", "depth")
+    err = lambda a, b: float((a.to(cpu) - b.to(cpu)).abs().max())
+    with no_tf32(), torch.no_grad():
+        full = {d: render_rays_vanilla(p, model, ro, rd, settings)
+                for d, (p, ro, rd) in args.items()}
+        coarse, z_fine, fine = {}, {}, {}
+        n = rays_o.shape[0]
+        z = stratified_z_vals(torch.full((n, 1), settings.near),
+                              torch.full((n, 1), settings.far), settings.N_samples)
+        for d, (p, ro, rd) in args.items():
+            vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+            dir_emb = model.embed_dir(vd)
+            coarse[d] = vanilla_pass(p["coarse"], model.cfg_coarse, model.embed_xyz,
+                                     ro, rd, z.to(d), dir_emb, settings)
+        w = coarse[dev]["weights"][..., 1:-1]
+        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+        for d in (cpu, dev):
+            z_fine[d] = sample_pdf(z_mid.to(d), w.to(d), settings.N_importance, det=True)
+        z_all = torch.sort(torch.cat([z.to(dev), z_fine[dev]], -1), -1).values
+        for d, (p, ro, rd) in args.items():
+            vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+            fine[d] = vanilla_pass(p["fine"], model.cfg_fine, model.embed_xyz, ro, rd,
+                                   z_all.to(d), model.embed_dir(vd), settings)
+    info = {"coarse": max(err(coarse[dev][k], coarse[cpu][k]) for k in keys),
+            "fine_z": err(z_fine[dev], z_fine[cpu]),
+            "fine_pass": max(err(fine[dev][k], fine[cpu][k]) for k in keys),
+            "render": max(err(full[dev][k], full[cpu][k]) for k in ("rgb", "acc"))}
+    ok = (max(info["coarse"], info["fine_pass"]) <= VANILLA_STAGE_TOL
+          and info["fine_z"] <= TOL_Z and info["render"] <= VANILLA_RENDER_TOL)
+    return ok, info
+
+
+# The backbone zoo, card against CPU in float32 with TF32 off: each output
+# within the CPU tests' bar (tests/test_torch_port_zoo*.py) times its largest
+# magnitude. The CPU tests' outputs are of order 1; a random-init zoo net's
+# range from 3e-7 (MobileNetV2's block-17 tap) to about 240 (ResNet34's
+# pose), so the bar scales with each.
+ZOO_BARS = {"posenetv2": 3e-4, "efficientnet_b0": 2e-3, "efficientnet_b3": 3e-3,
+            "resnet34_posenet": 3e-4, "mapnet": 3e-4,
+            **{f"autoencoder_vgg{v}": 1e-4 for v in range(1, 8)}}
+
+
+def zoo_model(name: str, gen: torch.Generator):
+    """(params, state, forward) of a zoo family at its published layout,
+    params drawn from `gen` on the CPU; forward(params, state, x) returns
+    the list of its output tensors. x is (B, 3, H, W) RGB in [0, 1]
+    ((N, T, 3, H, W) for mapnet; autoencoder_vgg6/7 pool their features to
+    a quarter of the input's sides)."""
+    from dfnet_tpu_torch.models import autoencoder as ae
+    from dfnet_tpu_torch.models import efficientnet as eff
+    from dfnet_tpu_torch.models import mobilenet as mob
+    from dfnet_tpu_torch.models import resnet as res
+
+    if name == "posenetv2":
+        def posenet(p, s, x):
+            feats, pose, _ = mob.posenetv2_forward(p, s, x, is_train=True,
+                                                   is_single_stream=True)
+            return [feats[0], pose]
+        return (*mob.init_posenetv2_params(gen), posenet)
+    if name.startswith("efficientnet_"):
+        cfg = eff.EfficientNetAPRConfig(variant=name.split("_")[1])
+        p, s = eff.init_efficientnet_apr(gen, cfg)
+        return p, s, lambda p, s, x: [eff.efficientnet_apr_forward(p, s, x, cfg)[0]]
+    if name in ("resnet34_posenet", "mapnet"):
+        cfg = res.LegacyPoseNetConfig(mapnet_heads=name == "mapnet")
+        p, s = res.init_legacy_posenet(gen, cfg)
+        fwd = res.mapnet_forward if name == "mapnet" else res.legacy_posenet_forward
+        return p, s, lambda p, s, x: [fwd(p, s, x, cfg)[0]]
+    v = int(name[-1])
+    p = getattr(ae, f"init_autoencoder_vgg{v}")(gen)
+    fwd = getattr(ae, f"autoencoder_vgg{v}")
+
+    def forward(p, s, x):
+        extra = (x.shape[-2] // 4, x.shape[-1] // 4) if v in (6, 7) else ()
+        out = []
+        for o in fwd(p, 2 * x - 1, *extra):
+            out += [] if o is None else (o if isinstance(o, list) else [o])
+        return out
+    return p, {}, forward
+
+
+def zoo_agreement(name: str, x: torch.Tensor, device, seed: int = 0) -> Tuple[bool, float]:
+    """(ok, the largest |card - CPU| / (bar * scale) over the outputs) of a
+    zoo family's float32 forward on x (CPU), TF32 off."""
+    from dfnet_tpu_torch.models.layers import tree_to
+
+    params, state, forward = zoo_model(name, torch.Generator().manual_seed(seed))
+    with no_tf32(), torch.no_grad():
+        want = forward(params, state, x)
+        got = forward(tree_to(params, device), tree_to(state, device), x.to(device))
+    ratio = 0.0
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        ratio = max(ratio, float((g.cpu() - w).abs().max()) / (ZOO_BARS[name] * scale))
+    return len(got) == len(want) and ratio <= 1.0, ratio

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on a card:
 coarse_sigma_t, fine_raw_t (fine and static packs), fine_composite_t,
 raw_bwd_t, proposal_z_rows (the mono path's sampler) and the layer-stack
-probe's mlp_stack_bf16 / mlp_stack_int8.
+probe's mlp_stack_bf16 / mlp_stack_int8, a NaN through the kernels'
+forward ReLU; and the port's other paths on the card against the CPU
+(stages 2 and 3, the data layer, the vanilla NeRF, the backbone zoo).
 
 Imports neither JAX nor dfnet_tpu, so it also runs on a machine that has
 only PyTorch for CUDA:
@@ -854,3 +856,98 @@ def test_prefetcher_delivers_the_host_batches_through_its_side_stream(cuda):
 
     with pytest.raises(ValueError, match="boom"):
         list(PrefetchIterator(bad, range(3), depth=1, device=cuda))
+
+
+# ------------------------------------------------------------------ NaN, the alternate models
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [128, 256])
+def test_forward_relu_carries_nan(cuda, W):
+    """A NaN in one hidden weight: fine_raw_t (the shipped trunk, fine pack)
+    and mlp_stack_bf16 give NaN exactly where their plain versions do, as
+    the TPU kernels' jnp.maximum does (fmaxf(NaN, 0) is 0). With the NaN
+    taken out, each gives the bits it gave before it went in."""
+    cfg = NeRFWConfig(D=8, W=W, skips=(4,), encode_appearance=True, encode_transient=True)
+    params = init_nerfw_params(torch.Generator().manual_seed(W), cfg, cuda)
+    emb = get_embedder(10)
+    spec = nk.spec_of(cfg, emb, fine=True)
+    ro, rd = _rays(37, seed=W, device=cuda)
+    rng = np.random.default_rng(W)
+    z = torch.tensor(np.sort(rng.uniform(NEAR, FAR, (37, 64)), -1).astype(np.float32),
+                     device=cuda)
+    dpt = torch.tensor(rng.normal(size=(37, spec.Wd)).astype(np.float32), device=cuda)
+
+    def sweep():
+        packed = {k: v.detach() for k, v in nk.pack_fine_t(params, cfg, emb).items()}
+        args = (packed, ro, rd, z, dpt, spec)
+        got = nk.fine_raw_t(*args)
+        torch.cuda.synchronize()
+        return got, nk.fine_raw_plain(*args)
+
+    before, _ = sweep()
+    assert torch.isfinite(before).all()
+    w = params["xyz_2"]["w"]
+    keep = float(w[5, 7])
+    w[5, 7] = float("nan")
+    got, want = sweep()
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    w[5, 7] = keep
+    assert torch.equal(sweep()[0], before)
+
+    x, ws = ms.probe_inputs("bf16", W, 1000, 3, cuda)
+    before = ms.mlp_stack_bf16(x, ws)
+    torch.cuda.synchronize()
+    assert torch.isfinite(before).all()
+    keep = ws[1, 3, 5].clone()
+    ws[1, 3, 5] = float("nan")
+    got, want = ms.mlp_stack_bf16(x, ws), ms.mlp_stack_bf16_plain(x, ws)
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ws[1, 3, 5] = keep
+    assert torch.equal(ms.mlp_stack_bf16(x, ws), before)
+
+
+@pytest.mark.gpu
+def test_vanilla_render_on_the_card_matches_the_cpu(cuda):
+    """The vanilla NeRF (NeRFH=False) at the shipped widths (D=8 W=128,
+    skip 4, 64 + 64 samples), float32 with TF32 off: the coarse and fine
+    passes within 1e-4 of the CPU, the fine z within 2e-3, the whole render
+    within the rendered-rgb bar (training/parity.py::vanilla_render_agreement),
+    and no kernel launched."""
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.models.factory import create_nerfh, render_settings
+    from dfnet_tpu_torch.training import parity
+
+    cfg = parse_args(["--NeRFH", "False", "--device", "cpu"], stage="nerf")
+    model, params = create_nerfh(cfg)
+    assert type(model).__name__ == "VanillaNeRFModel" and model.cfg_fine.W == 128
+    ro, rd = _rays(2048, seed=1, device="cpu")
+    ro = ro * 0.2
+    rd[:, 2] = -rd[:, 2].abs() - 1.0
+    nk.reset_launches()
+    ok, info = parity.vanilla_render_agreement(params, model, ro, rd,
+                                               render_settings(cfg, NEAR, FAR, test=True),
+                                               cuda)
+    assert ok, info
+    assert not any(nk.LAUNCHES.values()), nk.LAUNCHES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [
+    ("posenetv2", (2, 3, 64, 64)), ("efficientnet_b0", (2, 3, 37, 45)),
+    ("efficientnet_b3", (2, 3, 33, 33)), ("resnet34_posenet", (2, 3, 64, 64)),
+    ("mapnet", (2, 3, 3, 64, 64)), ("autoencoder_vgg1", (1, 3, 36, 36)),
+    ("autoencoder_vgg2", (1, 3, 36, 36)), ("autoencoder_vgg3", (1, 3, 64, 64)),
+    ("autoencoder_vgg4", (1, 3, 64, 64)), ("autoencoder_vgg5", (1, 3, 64, 64)),
+    ("autoencoder_vgg6", (1, 3, 64, 64)), ("autoencoder_vgg7", (1, 3, 64, 64))])
+def test_zoo_forward_on_the_card_matches_the_cpu(cuda, name, shape):
+    """Each backbone family's float32 forward (TF32 off) at the CPU tests'
+    input sizes, card against CPU, under the CPU tests' bars times each
+    output's scale (training/parity.py::zoo_agreement)."""
+    from dfnet_tpu_torch.training import parity
+
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(0))
+    ok, ratio = parity.zoo_agreement(name, x, cuda)
+    assert ok, ratio
