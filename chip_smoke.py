@@ -163,6 +163,18 @@ Phases (any failure exits non-zero):
                `[models]` lines give steps/s, the step by CUDA events, render
                rays/s, peak memory, the stage-2 pre-render and step, and ms a
                zoo forward.
+  14. mesh — the data mesh (phase_mesh): the stage-1 CLI (config_nerfh.txt
+               widths, epochs 0-2), its --render_test, a val view's eval
+               render, one stage-2 epoch (config_dfnet.txt) and one stage-3
+               epoch (config_dfnetdm.txt) on a 240x320 synthetic scene of
+               16 train / 2 val views, at world 1 and as two ranks sharing
+               the card over gloo (dfnet_tpu_torch/parallel/mesh.py,
+               share_device=True; NCCL takes one rank a GPU): losses within
+               rtol 1e-3 of world 1, the split render within the kernel
+               path's bar (bits equal reported), each rank launching what
+               one device launches and stage 3 nothing. `[mesh]` lines
+               give the step ms at both worlds, the collectives' calls, MB
+               and ms a step, and the launches per rank.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last {"ok": true, "device": {...}}.
 """
@@ -2645,6 +2657,236 @@ def phase_models(device):
     return out
 
 
+# the scene (train and val views, H, W, focal) and stage 1's last epoch
+# (stages 2 and 3: epoch 0)
+MESH_SIZES = dict(n_train=16, n_val=2, H=FEATURE_H, W=FEATURE_W, focal=FEATURE_FOCAL,
+                  epochs=2)
+MESH_LOSS_RTOL = 1e-3        # tests/test_cli.py:102, __graft_entry__.py:133
+MESH_WORLD = 2
+
+
+def mesh_legs(base: str, device, mesh, sizes: dict, render_ckpt: str = "") -> dict:
+    """phase_mesh's legs, on every rank of `mesh` (inside mesh.launch) or
+    alone on `device` (mesh None): the stage-1 CLI at
+    configs/config_nerfh.txt for epochs 0..sizes["epochs"], its
+    --render_test, the trainer's eval render of a val view from
+    `render_ckpt` (default: this run's checkpoint), one stage-2 epoch at
+    configs/config_dfnet.txt and one stage-3 epoch at
+    configs/config_dfnetdm.txt, each CLI through its `run(cfg, mesh)` on a
+    synthetic scene of `sizes` made on every rank from seed 0. Returns rank
+    0's results: per leg the CLI's return, every rank's kernel launches,
+    rank 0's collectives (calls, bytes, seconds, each between two
+    synchronisations) over the leg and, step by step, its step time (host
+    clock between two synchronisations) and the collectives inside it, and
+    the logged losses. The CLIs' prints are dropped."""
+    import torch
+
+    from dfnet_tpu_torch.cli import dm as dm_cli
+    from dfnet_tpu_torch.cli import feature as feature_cli
+    from dfnet_tpu_torch.cli import nerf as nerf_cli
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.parallel import checks
+    from dfnet_tpu_torch.parallel import mesh as pmesh
+    from dfnet_tpu_torch.training.checkpoints import latest_checkpoint, load_pytree
+    from dfnet_tpu_torch.training.dm_trainer import DMTrainer
+    from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
+    from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+
+    device = mesh.device() if mesh is not None else torch.device(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    scene = make_synthetic_scene(n_train=sizes["n_train"], n_val=sizes["n_val"],
+                                 H=sizes["H"], W=sizes["W"], focal=sizes["focal"], seed=0,
+                                 device=device)
+    clis = (nerf_cli, feature_cli, dm_cli)
+    orig_load = [c.load_scene for c in clis]
+    classes = (NeRFTrainer, FeatureTrainer, DMTrainer)
+    orig_step = [c.train_step for c in classes]
+    steps = []
+
+    def timed(fn):
+        def step(*a, **k):
+            c0 = dict(pmesh.COLLECTIVES)
+            sync()
+            t = time.perf_counter()
+            res = fn(*a, **k)
+            sync()
+            steps.append(dict(ms=1e3 * (time.perf_counter() - t),
+                              **{k: pmesh.COLLECTIVES[k] - v for k, v in c0.items()}))
+            if len(steps) == 1:        # the leg's first step's values
+                values = res if isinstance(res, tuple) else (res,)
+                steps[0]["values"] = [v.reshape(-1).tolist() for v in values]
+            return res
+        return step
+
+    out = {}
+
+    def leg(name, fn):
+        nk.reset_launches()
+        pmesh.COLLECTIVES.update(calls=0, bytes=0, seconds=0.0)
+        steps.clear()
+        res = fn()
+        out[name] = dict(result=res, launches=checks.per_rank(dict(nk.LAUNCHES)),
+                         collectives=dict(pmesh.COLLECTIVES), steps=list(steps))
+
+    cfgdir = ROOT / "configs"
+    common = ["--dataset_type", "synthetic", "--basedir", base, "--device", str(device)]
+    s1 = ["--config", str(cfgdir / "config_nerfh.txt"), *common]
+    pmesh.TIME_COLLECTIVES = True
+    for c in clis:
+        c.load_scene = lambda cfg, stage="nerf": scene
+    for c, f in zip(classes, orig_step):
+        c.train_step = timed(f)
+    epochs = str(sizes["epochs"])
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            leg("stage1", lambda: nerf_cli.run(parse_args(
+                s1 + ["--epochs", epochs, "--i_weights", epochs,
+                      "--i_testset", str(sizes["epochs"] + 1)], stage="nerf"), mesh))
+            leg("render_test", lambda: nerf_cli.run(parse_args(s1 + ["--render_test"],
+                                                               stage="nerf"), mesh))
+            ckpt = render_ckpt or latest_checkpoint(os.path.join(base, "nerfh"))
+            params = load_pytree(ckpt)[0]["params"]
+            leg("render", lambda: checks.render_view(
+                parse_args(s1, stage="nerf"), scene, params, scene.val.poses[0],
+                scene.val.hists[0], mesh))
+            leg("stage2", lambda: feature_cli.run(parse_args(
+                ["--config", str(cfgdir / "config_dfnet.txt"), *common, "--epochs", "0",
+                 "--i_eval", "1"], stage="feature"), mesh))
+            best = str(sorted((Path(base) / "dfnet").glob("checkpoint-*.npz"))[-1])
+            leg("stage3", lambda: dm_cli.run(parse_args(
+                ["--config", str(cfgdir / "config_dfnetdm.txt"), *common,
+                 "--pretrain_model_path", best, "--pretrain_featurenet_path", best,
+                 "--epochs", "0", "--i_eval", "1"], stage="dm"), mesh))
+    finally:
+        pmesh.TIME_COLLECTIVES = False
+        for c, f in zip(clis, orig_load):
+            c.load_scene = f
+        for c, f in zip(classes, orig_step):
+            c.train_step = f
+    pmesh.barrier()
+    for name, sub in (("stage1", "nerfh"), ("stage2", "dfnet"), ("stage3", "dfnetdm")):
+        with open(os.path.join(base, sub, "metrics.jsonl")) as fh:
+            out[name]["metrics"] = [json.loads(line) for line in fh]
+    out["stage1_ckpt"] = latest_checkpoint(os.path.join(base, "nerfh"))
+    return out
+
+
+def phase_mesh(device, mesh=None, sizes=MESH_SIZES):
+    """The data mesh (dfnet_tpu_torch/parallel/mesh.py) on the one card:
+    mesh_legs at world 1 in this process, then at world MESH_WORLD as ranks
+    sharing cuda:0 over gloo (make_mesh(..., share_device=True): NCCL
+    refuses two ranks on one GPU, and the CLIs keep JAX's refusal of more
+    ranks than GPUs), spawned by mesh.launch. Checks: world 2's losses
+    within MESH_LOSS_RTOL of world 1's (stage 1 every epoch's logged loss;
+    stage 2 the logged train and val loss; stage 3 its first step's loss
+    and PSNR, its epoch's logged means shown only, an epoch of DM steps
+    being chaotic at float32 rounding); the eval render of a val view from world 1's
+    stage-1 checkpoint, each rank rendering half its rays through the
+    kernels, within the render bar (TOL_COMP under FLIP_SHARE; whether the
+    bits are equal is reported); every rank of stage 1 launches fine_raw_t
+    and raw_bwd_t, of the render coarse_sigma_t and fine_raw_t, of stage 2
+    coarse_sigma_t and fine_raw_t (the sharded pre-render and RVS), of
+    stage 3 nothing. Two ranks on one card measure the path's overhead,
+    not a speed-up. `[mesh]` lines give each stage's median step ms at
+    both worlds, the collectives' calls, MB and ms a step, and the launches
+    per rank. (`mesh` and `sizes` other than the card's defaults rehearse
+    the phase, e.g. gloo processes on the CPU at a small size.)"""
+    import torch
+
+    from dfnet_tpu_torch.parallel.mesh import launch, make_mesh
+
+    mesh = mesh or make_mesh(MESH_WORLD, "cuda", share_device=True)
+    log(f"[mesh] {mesh.describe()}; {sizes['n_train']} train / {sizes['n_val']} val "
+        f"views of {sizes['H']}x{sizes['W']}")
+    with tempfile.TemporaryDirectory() as b1, tempfile.TemporaryDirectory() as b2:
+        one = mesh_legs(b1, device, None, sizes)
+        t0 = time.perf_counter()
+        two = launch(mesh_legs, mesh, b2, device, mesh, sizes, one["stage1_ckpt"])
+        spawn_s = time.perf_counter() - t0
+    if not all(len(two[k]["launches"]) == mesh.size for k in ("stage1", "stage2", "stage3")):
+        raise SystemExit(f"[mesh] the legs did not run on {mesh.size} ranks")
+
+    # held at MESH_LOSS_RTOL: the logged losses of stages 1 and 2, and
+    # stage 3's first step's (loss, PSNR); stage 3's epoch means are shown
+    # only: an epoch of DM steps is chaotic at float32 rounding (the pose
+    # gradient is rough below it, ROADMAP.md Queue 3; on the CPU, world 1
+    # alone moves its epoch's train loss by 3.9e-3 between one and four
+    # threads, tests/test_torch_port_mesh_cli.py)
+    held = {"stage1": ("loss",), "stage2": ("train_loss", "val_loss"),
+            "stage3": ("first_step",)}
+    shown = {"stage3": ("train_loss", "train_psnr", "val_loss", "val_psnr")}
+
+    def values(run, name, keys):
+        if keys == ("first_step",):
+            return [v for vs in run[name]["steps"][0]["values"] for v in vs]
+        return [m[k] for m in run[name]["metrics"] for k in keys]
+
+    def nz(counts):
+        return [{k: v for k, v in c.items() if v} for c in counts]
+
+    res, ok = {"spawn_s": spawn_s}, True
+    for name in ("stage1", "stage2", "stage3"):
+        l1, l2 = values(one, name, held[name]), values(two, name, held[name])
+        agree = (len(l1) == len(l2) > 0 and np.all(np.isfinite(l2))
+                 and np.allclose(l2, l1, rtol=MESH_LOSS_RTOL, atol=0))
+        steps = {w: run[name]["steps"][len(run[name]["steps"]) // 4:]
+                 for w, run in (("world1", one), ("world2", two))}
+        row = dict(held=held[name], world1=l1, world2=l2, agree=bool(agree),
+                   shown={k: (values(one, name, (k,)), values(two, name, (k,)))
+                          for k in shown.get(name, ())},
+                   step_ms={w: float(np.median([s["ms"] for s in v])) for w, v in steps.items()},
+                   steps=len(two[name]["steps"]),
+                   collectives_per_step={
+                       k: float(np.mean([s[k] for s in steps["world2"]]))
+                       for k in ("calls", "bytes", "seconds")},
+                   collectives_leg=two[name]["collectives"],
+                   launches_per_rank=two[name]["launches"],
+                   launches_world1=one[name]["launches"][0])
+        res[name] = row
+        ok &= agree
+        c = row["collectives_per_step"]
+        log(f"[mesh] {name}: {held[name]} world 1 {l1} / world {MESH_WORLD} {l2} (rtol "
+            f"{MESH_LOSS_RTOL}: {agree}); shown {row['shown']}; step "
+            f"{row['step_ms']['world1']:.2f} ms at world 1, "
+            f"{row['step_ms']['world2']:.2f} ms at world {MESH_WORLD} (median of steps "
+            f"after the first quarter of {row['steps']}, host clock between syncs; the "
+            f"ranks share the card); collectives inside such a step on rank 0: "
+            f"{c['calls']:.1f} calls, "
+            f"{c['bytes'] / 1e6:.3f} MB, {1e3 * c['seconds']:.2f} ms (between syncs); the "
+            f"leg's: {row['collectives_leg']}; launches per rank "
+            f"{nz(row['launches_per_rank'])} (world 1 {nz([row['launches_world1']])})")
+    want = {"stage1": ("fine_raw_t", "raw_bwd_t"), "stage2": ("coarse_sigma_t", "fine_raw_t"),
+            "render": ("coarse_sigma_t", "fine_raw_t")}
+    for name, kernels in want.items():
+        for rank, counts in enumerate(two[name]["launches"]):
+            ok &= all(counts[k] > 0 for k in kernels)
+    ok &= all(not any(c.values()) for c in two["stage3"]["launches"])
+    r1, r2 = one["render"]["result"], two["render"]["result"]
+    got, ref = torch.as_tensor(r2["rgb"]), torch.as_tensor(r1["rgb"])
+    r_ok, r_info = compare_rows(got.reshape(-1, 3), ref.reshape(-1, 3), TOL_COMP)
+    bits = all(np.array_equal(r2[k], r1[k]) for k in ("rgb", "disp", "acc"))
+    res["render"] = dict(agree=r_ok, bits_equal=bool(bits), fast=r2["fast"],
+                         launches_per_rank=two["render"]["launches"], **r_info)
+    psnr1, psnr2 = one["render_test"]["result"], two["render_test"]["result"]
+    res["render_test"] = dict(val_psnr_world1=psnr1, val_psnr_world2=psnr2,
+                              launches_per_rank=two["render_test"]["launches"])
+    ok &= r_ok and bool(r2["fast"]) and bool(np.isfinite(psnr2))
+    log(f"[mesh] sharded eval render of a val view (world 1's stage-1 checkpoint): "
+        f"within {TOL_COMP} under FLIP_SHARE {r_ok} ({json.dumps(r_info)}), bits equal "
+        f"{bits}; launches per rank {nz(two['render']['launches'])}; --render_test val "
+        f"PSNR {psnr1:.4f} (world 1, its checkpoint) / {psnr2:.4f} (world {MESH_WORLD}, "
+        f"its checkpoint); launches per rank {nz(two['render_test']['launches'])}")
+    log(f"[mesh] world {MESH_WORLD} launch: {spawn_s:.1f} s, spawning and all legs")
+    if not ok:
+        raise SystemExit(f"[mesh] failed: {json.dumps(res, default=str)}")
+    res["launches"] = {f"mesh_{name}_rank{r}": counts for name in
+                       ("stage1", "render_test", "render", "stage2", "stage3")
+                       for r, counts in enumerate(two[name]["launches"])}
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2696,6 +2938,7 @@ def main() -> int:
         shutil.rmtree(handoff["root"], ignore_errors=True)
     cases += feature["cases"]
     models = timed(phase_models, device)
+    mesh = timed(phase_mesh, device)
 
     # each kernel's row: its case on the main path it was ported for, and
     # the launches of every main path, each counted from 0 over its run
@@ -2720,7 +2963,8 @@ def main() -> int:
                      "dm": dm["launches"],
                      "sevenscenes": seven["launches"],
                      **{f"tools_{k}": v for k, v in tools["launches"].items()},
-                     **models["launches"]}
+                     **models["launches"],
+                     **mesh.pop("launches")}
     kernels = []
     for name, (asset, sched, path) in main_case.items():
         c = next(c for c in cases if c["name"] == name and c["asset"] == asset
@@ -2746,6 +2990,7 @@ def main() -> int:
     log(json.dumps({"sevenscenes": seven}))
     log(json.dumps({"tools": tools}))
     log(json.dumps({"models": {k: v for k, v in models.items() if k != "launches"}}))
+    log(json.dumps({"mesh": mesh}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

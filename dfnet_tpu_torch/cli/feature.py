@@ -19,9 +19,10 @@ on the host and copies each batch to the GPU N batches ahead of the step
 every train view and its render to ./tmp/features/{target,rgb}/NNNN.png,
 relative to the working directory. `--vgg_init_path` starts the encoder
 from a torchvision VGG16 state-dict file. `--check_numerics` raises
-FloatingPointError at the first step with a non-finite loss. A
-`--mesh_shape` above 1 comes with a later slice of the port (ROADMAP.md)
-and raises NotImplementedError.
+FloatingPointError at the first step with a non-finite loss.
+`--mesh_shape n` (n > 1) runs n ranks (parallel/mesh.py; NCCL, one a GPU,
+or gloo processes under `--device cpu`): the pre-render splits each view's
+rays, each step splits its images' encoder, and rank 0 prints and writes.
 """
 
 import os
@@ -34,6 +35,7 @@ from dfnet_tpu_torch.config import apply_runtime_flags, parse_args
 from dfnet_tpu_torch.data.loader import load_scene
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.dfnet import dfnet_forward
+from dfnet_tpu_torch.parallel.mesh import agree, is_main, launch, mesh_from_config
 from dfnet_tpu_torch.training.feature_trainer import FeatureTrainer
 from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
 from dfnet_tpu_torch.utils.metrics_logger import MetricsLogger
@@ -41,6 +43,8 @@ from dfnet_tpu_torch.utils.visualization import save_image_saliancy_single
 
 
 def dump_args(cfg):
+    if not is_main():
+        return
     expdir = osp.join(cfg.basedir, cfg.expname)
     os.makedirs(expdir, exist_ok=True)
     with open(osp.join(expdir, "args.txt"), "w") as fh:
@@ -55,6 +59,8 @@ def render_features(cfg, scene, trainer, out_root="./tmp/features"):
     of each, an eval-mode float32 forward, at
     <out_root>/{target,rgb}/NNNN.png."""
     rgbs = trainer.prerender_train_views()
+    if not is_main():
+        return
     tr = scene.train
     for sub in ("target", "rgb"):
         os.makedirs(osp.join(out_root, sub), exist_ok=True)
@@ -73,27 +79,39 @@ def render_features(cfg, scene, trainer, out_root="./tmp/features"):
     print("render features done")
 
 
-def train(argv=None):
+def train(argv=None, mesh=None):
     """Runs the stage; returns the last (median, mean) pose error it
-    measured, or None when no eval ran."""
+    measured, or None when no eval ran (rank 0's on a mesh). `mesh`
+    (parallel/mesh.py) replaces --mesh_shape's, e.g. a share_device mesh of
+    ranks on one GPU."""
     cfg = parse_args(argv, stage="feature")
+    mesh = mesh if mesh is not None else mesh_from_config(cfg)
+    if mesh is not None:
+        return launch(run, mesh, cfg, mesh)
+    return run(cfg, None)
+
+
+def run(cfg, mesh=None):
+    """The stage on this process: alone (mesh None), or as this rank of
+    `mesh` inside parallel/mesh.py::launch."""
     with apply_runtime_flags(cfg):
-        return _run(cfg)
+        return _run(cfg, mesh)
 
 
-def _run(cfg):
-    device = resolve_device(cfg.device)
+def _run(cfg, mesh):
+    device = resolve_device(mesh.device() if mesh is not None else cfg.device)
     if cfg.dataset_type not in ("7Scenes", "Cambridge", "synthetic"):
         print("Unknown dataset type", cfg.dataset_type, "exiting")
         return None
     scene = load_scene(cfg, stage="apr")
     print(f"[run_feature] NEAR FAR {scene.near} {scene.far} "
-          f"train={len(scene.train)} val={len(scene.val)} device={device}")
+          f"train={len(scene.train)} val={len(scene.val)} device={device} "
+          f"world={mesh.size if mesh is not None else 1}")
     nerf = None
     if not cfg.eval:
         nerf = FrozenNeRF.from_experiment(cfg, scene.hwf, scene.near, scene.far,
-                                          scene.world_setup, device=device)
-    trainer = FeatureTrainer(cfg, scene, nerf, device=device)
+                                          scene.world_setup, mesh=mesh, device=device)
+    trainer = FeatureTrainer(cfg, scene, nerf, device=device, mesh=mesh)
 
     if cfg.eval:
         return trainer.eval_median_error(scene.val)
@@ -113,11 +131,14 @@ def _run(cfg):
             poses_perturb, virtue_view = trainer.rvs_refresh(rng)
             virtue_view = trainer.epoch_images(virtue_view)
         train_loss = trainer.train_epoch(targets, rgbs, virtue_view, poses_perturb, rng)
-        val_loss = trainer.validate()
+        # every rank takes the schedule's and early stopping's decisions
+        # on the same values
+        train_loss, val_loss = agree(train_loss, trainer.validate())
         trainer.scheduler.step(val_loss)
         print(f"At epoch {epoch:6d} : train loss: {train_loss:.4f}, "
               f"val loss: {val_loss:.4f}")
-        mlog.log(epoch, train_loss=train_loss, val_loss=val_loss, lr=trainer.scheduler.lr)
+        mlog.log(epoch, train_loss=train_loss, val_loss=val_loss, lr=trainer.scheduler.lr,
+                 world=mesh.size if mesh is not None else 1)
         trainer.early_stopping(val_loss, trainer.checkpoint_tree(), epoch=epoch,
                                save_multiple=(not cfg.no_save_multiple),
                                save_all=cfg.save_all_ckpt)

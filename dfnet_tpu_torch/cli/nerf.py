@@ -18,7 +18,12 @@ spiral around a random train view (data/view_selection.py, seeded by
 rng_seed) to spiral_NNNNNN.png. Videos are animated PNGs at 15 frames a
 second (training/nerf_trainer.py::write_video). `--check_numerics` raises
 FloatingPointError at the first step with a non-finite loss
-(config.py::apply_runtime_flags).
+(config.py::apply_runtime_flags). `--mesh_shape n` (n > 1) runs n ranks
+(parallel/mesh.py): one a GPU over NCCL, or n CPU processes over gloo
+under `--device cpu`; each step splits its rays across them and the eval
+renders their ray axis, rank 0 prints and writes, and `metrics.jsonl`
+records the world size. n above the GPU count raises ValueError; 0 takes
+every local GPU.
 """
 
 import os
@@ -32,11 +37,14 @@ from dfnet_tpu_torch.config import apply_runtime_flags, parse_args
 from dfnet_tpu_torch.data.loader import load_scene
 from dfnet_tpu_torch.data.view_selection import generate_render_pose
 from dfnet_tpu_torch.device import resolve_device
+from dfnet_tpu_torch.parallel.mesh import is_main, launch, mesh_from_config
 from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer, exp_decayed_lr, write_video
 from dfnet_tpu_torch.utils.metrics_logger import MetricsLogger
 
 
 def dump_args(cfg):
+    if not is_main():
+        return
     expdir = osp.join(cfg.basedir, cfg.expname)
     os.makedirs(expdir, exist_ok=True)
     with open(osp.join(expdir, "args.txt"), "w") as fh:
@@ -61,28 +69,41 @@ def render_spiral(cfg, scene, trainer, start: int) -> str:
         frames.append(trainer._render(trainer.params, pose, hist, start)["rgb"].cpu().numpy())
     expdir = osp.join(cfg.basedir, cfg.expname)
     os.makedirs(expdir, exist_ok=True)
-    path = write_video(osp.join(expdir, f"spiral_{start:06d}"), np.stack(frames))
+    path = osp.join(expdir, f"spiral_{start:06d}.png")
+    if is_main():
+        write_video(path[:-len(".png")], np.stack(frames))
     print("Saved spiral render video to", path)
     return path
 
 
-def train(argv=None):
+def train(argv=None, mesh=None):
     """Runs the stage; returns the last val PSNR it measured (None when a
     training run made no eval render), or under --render_pose_only the
-    spiral video's path."""
+    spiral video's path (rank 0's on a mesh). `mesh` (parallel/mesh.py)
+    replaces --mesh_shape's, e.g. a share_device mesh of ranks on one GPU."""
     cfg = parse_args(argv, stage="nerf")
+    mesh = mesh if mesh is not None else mesh_from_config(cfg)
+    if mesh is not None:
+        return launch(run, mesh, cfg, mesh)
+    return run(cfg, None)
+
+
+def run(cfg, mesh=None):
+    """The stage on this process: alone (mesh None), or as this rank of
+    `mesh` inside parallel/mesh.py::launch."""
     with apply_runtime_flags(cfg):
-        return _run(cfg)
+        return _run(cfg, mesh)
 
 
-def _run(cfg):
-    device = resolve_device(cfg.device)
+def _run(cfg, mesh):
+    device = resolve_device(mesh.device() if mesh is not None else cfg.device)
+    world = mesh.size if mesh is not None else 1
     print(f"[run_nerf] dataset={cfg.dataset_type} datadir={cfg.datadir} "
-          f"device={device}")
+          f"device={device} world={world}")
     scene = load_scene(cfg, stage="nerf")
     print(f"[run_nerf] NEAR FAR {scene.near} {scene.far} "
           f"train={len(scene.train)} val={len(scene.val)} hwf={scene.hwf}")
-    trainer = NeRFTrainer(cfg, scene, device=device)
+    trainer = NeRFTrainer(cfg, scene, device=device, mesh=mesh)
     start = trainer.try_resume()
     expdir = osp.join(cfg.basedir, cfg.expname)
 
@@ -112,7 +133,7 @@ def _run(cfg):
         loss, psnr = trainer.train_epoch(epoch)
         dt = time.time() - t0
         lr = exp_decayed_lr(cfg, epoch)
-        mlog.log(epoch, loss=loss, psnr=psnr, lr=lr, epoch_s=dt)
+        mlog.log(epoch, loss=loss, psnr=psnr, lr=lr, epoch_s=dt, world=world)
         if epoch % cfg.i_print == 0:
             print(f"[TRAIN] Iter: {epoch} Loss: {loss:.5f}  PSNR: {psnr:.3f}  "
                   f"lr: {lr:.2e}  ({dt:.1f}s)")

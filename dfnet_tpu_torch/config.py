@@ -159,7 +159,9 @@ class Config:
     proposal_multires: int = 4          # proposal PE frequencies (small: cheap features suffice)
     proposal_loss_w: float = 1.0        # weight of the interlevel bound loss
     proposal_render: bool = True        # place test-render samples with the proposal net when present
-    mesh_shape: Optional[int] = None    # data-parallel mesh size; None = all local devices
+    mesh_shape: Optional[int] = None    # data-parallel ranks (parallel/mesh.py): None or 1 = one
+                                        # device; 0 = every local GPU; n = n ranks (NCCL, one a
+                                        # GPU; gloo processes under --device cpu)
     prefetch: int = 0                   # >0: double-buffered host→HBM batches (depth), for
                                         # larger-than-HBM datasets; 0 = device-resident/sync
     donate_step: bool = True            # donate params/opt_state buffers in jitted steps

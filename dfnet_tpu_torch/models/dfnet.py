@@ -137,6 +137,60 @@ def _adapt_level(p: Dict, s: Dict, f: torch.Tensor, train_bn: bool):
     return _batchnorm(p, s, conv2d(conv2, h), train_bn)
 
 
+def dfnet_encode(params: Dict, x: torch.Tensor, cfg: DFNetConfig = DFNetConfig(),
+                 return_pose: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+    """The encoder half of dfnet_forward: (pooled, taps) of (B, 3, H, W)
+    RGB in [0, 1]. taps: the hypercolumn taps (pre-ReLU, compute_dtype),
+    one (B, C, h, w) each; pooled: the pool5 output's global average,
+    (B, 512) float32, or None when return_pose=False (the encoder then
+    stops at the last tap). Per image: a data mesh splits this half by
+    images (training/feature_trainer.py)."""
+    with conv_precision(compute_dtype):
+        x = imagenet_normalize(x)
+        enc = params["encoder"]
+        if compute_dtype != torch.float32:
+            x = x.to(compute_dtype)
+            enc = {k: _cast(v, compute_dtype) for k, v in enc.items()}
+        final, taps = vgg16_features(enc, x, cfg.hypercolumn_layers,
+                                     run_to_end=return_pose)
+        return (final.float().mean((2, 3)) if return_pose else None), taps
+
+
+def dfnet_head(params: Dict, state: Dict, pooled, taps, cfg: DFNetConfig = DFNetConfig(),
+               return_feature: bool = False, is_single_stream: bool = False,
+               upsample_h: int = 240, upsample_w: int = 427, train_bn: bool = False,
+               compute_dtype: torch.dtype = torch.float32,
+               feature_count: int | None = None):
+    """The rest of dfnet_forward on dfnet_encode's (pooled, taps): the
+    adapt branch (1x1 conv, ReLU, 5x5 conv, BatchNorm over the batch), the
+    upsample and the pose head. Returns (feature_maps, pose, new_state) as
+    dfnet_forward does (pose None when pooled is None)."""
+    with conv_precision(compute_dtype):
+        feature_maps = None
+        new_state = state
+        if return_feature:
+            fc = taps[0].shape[0] if feature_count is None else feature_count
+            ups, new_adapt = [], {}
+            for i, f in enumerate(taps):
+                a, new_adapt[str(i)] = _adapt_level(params["adapt"][str(i)],
+                                                    state["adapt"][str(i)], f[:fc],
+                                                    train_bn)
+                ups.append(resize_bilinear_nchw(a.to(compute_dtype), upsample_h,
+                                                upsample_w))
+            new_state = {**state, "adapt": new_adapt}
+            if is_single_stream:
+                feature_maps = (torch.stack(ups),)                 # (L, B, C, H, W)
+            else:
+                h = ups[0].shape[0] // 2
+                feature_maps = (torch.stack([u[:h] for u in ups]),
+                                torch.stack([u[h:] for u in ups]))
+        if pooled is None:
+            return feature_maps, None, new_state
+        pose = Fn.linear(pooled, params["fc_pose"]["w"], params["fc_pose"]["b"])
+        return feature_maps, pose, new_state
+
+
 def dfnet_forward(
     params: Dict,
     state: Dict,
@@ -159,40 +213,12 @@ def dfnet_forward(
 
     feature_count: only the first `feature_count` images flow through the
     adapt/upsample branch and its BN statistics (default: all), so pose-only
-    images (stage 2's RVS views) can ride the same encoder batch."""
-    with conv_precision(compute_dtype):
-        x = imagenet_normalize(x)
-        enc = params["encoder"]
-        if compute_dtype != torch.float32:
-            x = x.to(compute_dtype)
-            enc = {k: _cast(v, compute_dtype) for k, v in enc.items()}
-        final, taps = vgg16_features(enc, x, cfg.hypercolumn_layers,
-                                     run_to_end=return_pose)
+    images (stage 2's RVS views) can ride the same encoder batch.
 
-        feature_maps = None
-        new_state = state
-        if return_feature:
-            fc = x.shape[0] if feature_count is None else feature_count
-            ups, new_adapt = [], {}
-            for i, f in enumerate(taps):
-                a, new_adapt[str(i)] = _adapt_level(params["adapt"][str(i)],
-                                                    state["adapt"][str(i)], f[:fc],
-                                                    train_bn)
-                ups.append(resize_bilinear_nchw(a.to(compute_dtype), upsample_h,
-                                                upsample_w))
-            new_state = {**state, "adapt": new_adapt}
-            if is_single_stream:
-                feature_maps = (torch.stack(ups),)                 # (L, B, C, H, W)
-            else:
-                h = ups[0].shape[0] // 2
-                feature_maps = (torch.stack([u[:h] for u in ups]),
-                                torch.stack([u[h:] for u in ups]))
-
-        if not return_pose:
-            return feature_maps, None, new_state
-        pooled = final.float().mean((2, 3))                        # (B, 512)
-        pose = Fn.linear(pooled, params["fc_pose"]["w"], params["fc_pose"]["b"])
-        return feature_maps, pose, new_state
+    dfnet_encode then dfnet_head."""
+    pooled, taps = dfnet_encode(params, x, cfg, return_pose, compute_dtype)
+    return dfnet_head(params, state, pooled, taps, cfg, return_feature, is_single_stream,
+                      upsample_h, upsample_w, train_bn, compute_dtype, feature_count)
 
 
 class _ParamTree(nn.Module):

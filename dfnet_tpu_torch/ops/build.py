@@ -103,7 +103,11 @@ def build_all(names: List[str] = KERNEL_SOURCES) -> Dict[str, Path]:
         if proc is None:
             continue
         text, _ = proc.communicate()
-        log.write_text(text)
+        # per process, then renamed, like the library: ranks of a mesh may
+        # build the same source at once
+        log_tmp = out_dir / f"{name}.{os.getpid()}.log"
+        log_tmp.write_text(text)
+        os.replace(log_tmp, log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{text}")
             continue

@@ -356,20 +356,23 @@ def render_image_fast(params: Dict, model: NeRFHModel, c2w, hist,
                       cull_q: float = 0.0, n_fine: Optional[int] = None,
                       n_place: Optional[int] = None,
                       fuse_composite: bool = False,
-                      fast: Optional[FastNeRFH] = None) -> Dict:
+                      fast: Optional[FastNeRFH] = None, mesh=None) -> Dict:
     """Full-image render through the kernels (test-time drop-in for
     volume.render_image: same rgb/disp/acc keys). Rays are padded to a
     multiple of `chunk` and rendered one chunk at a time. Pass a packed
-    `fast` to skip re-packing the weights per call."""
+    `fast` to skip re-packing the weights per call. With a mesh
+    (parallel/mesh.py) each rank renders its slice of the ray axis, with
+    the kernels the one-device render launches on all of them, and the
+    slices are gathered."""
     if fast is None:
         fast = FastNeRFH.pack(params, model, use_proposal=use_proposal)
     align = kernel_ray_align(model, settings, n_fine, n_place)
     chunk = max(chunk // align, 1) * align
-    n, ro, rd = chunked_rays(H, W, focal, c2w, chunk)
+    n, ro, rd = chunked_rays(H, W, focal, c2w, chunk, mesh)
     hist_b = hist[None]            # (1, HB): one histogram for every ray
     outs = [render_rays_fast(fast, o, d, hist_b, settings,
                              exact_union=exact_union, cull_q=cull_q,
                              n_fine=n_fine, n_place=n_place,
                              fuse_composite=fuse_composite)
             for o, d in zip(ro, rd)]
-    return gather_image(outs, n, H, W)
+    return gather_image(outs, n, H, W, mesh)

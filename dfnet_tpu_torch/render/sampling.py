@@ -2,31 +2,59 @@
 (importance) resampling (port of dfnet_tpu/render/sampling.py).
 
 Random draws take an explicit `torch.Generator` that lives on the device
-of the tensors they are drawn for (`torch.Generator(device=...)`)."""
+of the tensors they are drawn for (`torch.Generator(device=...)`), or a
+RowShard of one: a rank of a data mesh then draws what one device would,
+and keeps its rows."""
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Union
 
 import torch
 
 
-def _check_gen(gen: torch.Generator, device) -> None:
+@dataclass(frozen=True)
+class RowShard:
+    """A generator seen from a rank that holds rows [lo, hi) of a batch of
+    `total` rows: every draw is taken at the batch's shape (leading dim
+    `total`) and cut to those rows, so the ranks consume the generator as
+    one device does and a mesh's random tensors are one device's."""
+    gen: torch.Generator
+    lo: int
+    hi: int
+    total: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.gen.device
+
+
+def _check_gen(gen: Union[torch.Generator, RowShard], device) -> None:
     if gen.device.type != torch.device(device).type:
         raise ValueError(f"a generator on {gen.device} cannot draw for tensors on "
                          f"{device}: make it with torch.Generator(device=...)")
 
 
-def uniform(shape, gen: torch.Generator, device) -> torch.Tensor:
+def _draw(fn, shape, gen: Union[torch.Generator, RowShard], device) -> torch.Tensor:
+    _check_gen(gen, device)
+    if not isinstance(gen, RowShard):
+        return fn(shape, generator=gen, device=device)
+    if shape[0] != gen.hi - gen.lo:
+        raise ValueError(f"a draw of {shape[0]} rows from the rows [{gen.lo}, {gen.hi}) "
+                         f"of a RowShard")
+    return fn((gen.total,) + tuple(shape[1:]), generator=gen.gen,
+              device=device)[gen.lo:gen.hi]
+
+
+def uniform(shape, gen: Union[torch.Generator, RowShard], device) -> torch.Tensor:
     """U[0, 1) float32 draws from `gen`, which must be on `device`."""
-    _check_gen(gen, device)
-    return torch.rand(shape, generator=gen, device=device)
+    return _draw(torch.rand, shape, gen, device)
 
 
-def gaussian(shape, gen: torch.Generator, device) -> torch.Tensor:
+def gaussian(shape, gen: Union[torch.Generator, RowShard], device) -> torch.Tensor:
     """N(0, 1) float32 draws from `gen`, which must be on `device`."""
-    _check_gen(gen, device)
-    return torch.randn(shape, generator=gen, device=device)
+    return _draw(torch.randn, shape, gen, device)
 
 
 def stratified_z_vals(near, far, N_samples: int,

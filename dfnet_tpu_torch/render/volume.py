@@ -29,6 +29,7 @@ from dfnet_tpu_torch.models.nerfw import (
     lookup_hist_embedding,
     nerfw_apply_rays,
 )
+from dfnet_tpu_torch.parallel.mesh import gather_rows, row_counts, shard_rows
 from dfnet_tpu_torch.render.rays import get_rays
 from dfnet_tpu_torch.render.sampling import gaussian, sample_pdf, stratified_z_vals
 
@@ -311,12 +312,18 @@ def render_rays_vanilla(params: Dict, model: VanillaNeRFModel, rays_o: torch.Ten
     return out
 
 
-def chunked_rays(H: int, W: int, focal: float, c2w: torch.Tensor, chunk: int):
+def chunked_rays(H: int, W: int, focal: float, c2w: torch.Tensor, chunk: int,
+                 mesh=None):
     """Flattened rays of one view, padded to a multiple of `chunk`
-    (origins 0, directions 1 on the pad) and split into chunks."""
+    (origins 0, directions 1 on the pad) and split into chunks: (n, origin
+    chunks, direction chunks). With a mesh, only this rank's rows of the
+    view (parallel/mesh.py::shard_rows), and n is their count."""
     rays_o, rays_d = get_rays(H, W, focal, c2w)
     rays_o = rays_o.reshape(-1, 3)
     rays_d = rays_d.reshape(-1, 3)
+    if mesh is not None:
+        lo, hi = shard_rows(rays_o.shape[0])
+        rays_o, rays_d = rays_o[lo:hi], rays_d[lo:hi]
     n = rays_o.shape[0]
     n_pad = -n % chunk
     rays_o = torch.cat([rays_o, rays_o.new_zeros((n_pad, 3))], 0)
@@ -324,26 +331,37 @@ def chunked_rays(H: int, W: int, focal: float, c2w: torch.Tensor, chunk: int):
     return n, rays_o.split(chunk), rays_d.split(chunk)
 
 
-def gather_image(outs, n: int, H: int, W: int) -> Dict:
-    """Concatenate per-chunk rgb/disp/acc maps and cut the pad."""
-    res = {}
-    for k in ("rgb", "disp", "acc"):
-        v = torch.cat([o[k] for o in outs], 0)[:n]
-        res[k] = v.reshape((H, W) + v.shape[1:])
-    return res
+IMAGE_KEYS = ("rgb", "disp", "acc")
+
+
+def gather_image(outs, n: int, H: int, W: int, mesh=None) -> Dict:
+    """Concatenate per-chunk rgb/disp/acc maps and cut the pad. With a
+    mesh, each rank holds its rows of the view: they are gathered in one
+    all-gather (autograd through it, parallel/mesh.py::gather_rows)."""
+    cols = [torch.cat([o[k] for o in outs], 0)[:n] for k in IMAGE_KEYS]
+    if mesh is not None:
+        flat = gather_rows(torch.cat([c.reshape(n, -1) for c in cols], 1),
+                           row_counts(H * W))
+        widths = [c[0].numel() for c in cols]
+        cols = [part.reshape((H * W,) + c.shape[1:])
+                for part, c in zip(flat.split(widths, 1), cols)]
+    return {k: v.reshape((H, W) + v.shape[1:]) for k, v in zip(IMAGE_KEYS, cols)}
 
 
 def render_image_grad(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel],
                       c2w: torch.Tensor, hist: torch.Tensor, H: int, W: int,
                       focal: float, settings: RenderSettings, chunk: int = 1024 * 8,
-                      epoch: Optional[float] = None) -> Dict:
+                      epoch: Optional[float] = None, mesh=None) -> Dict:
     """Full-image render: flatten rays, pad to a chunk multiple and render
     fixed-size chunks in turn (the reference's batchify_rays), through
     render_rays_vanilla for a vanilla model (which reads no hist) and
     render_rays otherwise. Autograd stays on: the result is differentiable
     in c2w and the params (stage 3's pose gradients). `epoch` as in
-    render_rays."""
-    n, ro, rd = chunked_rays(H, W, focal, c2w, chunk)
+    render_rays. With a mesh (parallel/mesh.py) each rank renders its
+    slice of the ray axis and the slices are gathered with autograd, so
+    a pose gradient reaches every rank's rays (the JAX package's
+    render_image(shard=...))."""
+    n, ro, rd = chunked_rays(H, W, focal, c2w, chunk, mesh)
     if isinstance(model, VanillaNeRFModel):
         outs = [render_rays_vanilla(params, model, o, d, settings, epoch=epoch)
                 for o, d in zip(ro, rd)]
@@ -351,14 +369,14 @@ def render_image_grad(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel],
         hist_b = hist[None].expand((chunk,) + hist.shape)
         outs = [render_rays(params, model, o, d, hist_b, settings, epoch=epoch)
                 for o, d in zip(ro, rd)]
-    return gather_image(outs, n, H, W)
+    return gather_image(outs, n, H, W, mesh)
 
 
 @torch.no_grad()
 def render_image(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel], c2w: torch.Tensor,
                  hist: torch.Tensor, H: int, W: int, focal: float,
                  settings: RenderSettings, chunk: int = 1024 * 8,
-                 epoch: Optional[float] = None) -> Dict:
+                 epoch: Optional[float] = None, mesh=None) -> Dict:
     """render_image_grad without autograd (evaluation renders)."""
     return render_image_grad(params, model, c2w, hist, H, W, focal, settings, chunk,
-                             epoch)
+                             epoch, mesh)

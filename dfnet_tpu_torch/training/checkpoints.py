@@ -22,6 +22,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dfnet_tpu_torch.parallel.mesh import barrier, is_main
+
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
     out = {}
@@ -85,11 +87,16 @@ def params_to_numpy(tree):
 
 
 def save_pytree(path: str, tree, **scalars):
-    flat = _flatten({"tree": params_to_numpy(tree)})
-    for k, v in scalars.items():
-        flat[f"__scalar__{k}"] = np.asarray(v)
-    os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
-    np.savez(path, **flat)
+    """Write `tree` (and the named scalars) to `path`. On a mesh every rank
+    calls it, rank 0 writes, and the ranks meet at a barrier after, so a
+    rank that reads the file next finds it whole."""
+    if is_main():
+        flat = _flatten({"tree": params_to_numpy(tree)})
+        for k, v in scalars.items():
+            flat[f"__scalar__{k}"] = np.asarray(v)
+        os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
+        np.savez(path, **flat)
+    barrier()
 
 
 def load_pytree(path: str) -> Tuple[Any, Dict[str, Any]]:

@@ -30,6 +30,14 @@ renders and of the JAX package; DFNet reads them as NCHW views. Under
 `--prefetch N` the train split stays on the host, and each step's images,
 poses and hists reach the device through data/prefetch.py, N steps ahead. Float32
 steps run forward and backward inside models/dfnet.py::conv_precision.
+
+With a mesh (parallel/mesh.py; the FrozenNeRF it renders through carries
+it) F's forward and the loss run replicated on every rank, each rank
+renders its slice of each predicted pose's rays with autograd (the plain
+renderer), and the slices are gathered: the gather's backward hands each
+rank the summed cotangents of its rays, so the pose gradient reaches every
+rank's slice and the grads averaged over ranks are the one-device grads.
+The val metrics and the median error stay replicated.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from dfnet_tpu_torch.models.dfnet import (
     dfnet_params_to_jax,
 )
 from dfnet_tpu_torch.models.losses import img2mse, mse2psnr
+from dfnet_tpu_torch.parallel.mesh import all_reduce_grads_
 from dfnet_tpu_torch.pose.se3 import project_rotation_svd, rescale_poses_to_nerf
 from dfnet_tpu_torch.render.rays import get_rays
 from dfnet_tpu_torch.render.volume import render_rays
@@ -74,14 +83,10 @@ def select_levels_for_loss(feats: torch.Tensor, levels: Sequence[int]) -> torch.
     return sel.transpose(0, 1).reshape(B, L * C, H * W)
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise for what stage 3 needs and later slices of the port bring."""
+def check_config(cfg: Config) -> None:
+    """Raise for what stage 3 needs and the config lacks."""
     if not cfg.pretrain_model_path:
         raise ValueError("stage 3 requires a pretrained DFNet (--pretrain_model_path)")
-    if int(cfg.mesh_shape or 1) > 1:
-        raise NotImplementedError(
-            "a device mesh (multi-GPU training) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 10)")
 
 
 class DMTrainer:
@@ -89,7 +94,7 @@ class DMTrainer:
 
     def __init__(self, cfg: Config, scene: SceneData, nerf: FrozenNeRF,
                  device=None, gen: Optional[torch.Generator] = None):
-        refuse_unported(cfg)
+        check_config(cfg)
         if nerf.is_vanilla:
             raise NotImplementedError(
                 "stage 3 over a vanilla NeRF (NeRFH=False): the JAX package's DM "
@@ -100,7 +105,10 @@ class DMTrainer:
         self.cfg = cfg
         self.scene = scene
         self.nerf = nerf
-        self.device = resolve_device(device if device is not None else cfg.device)
+        self.mesh = nerf.mesh
+        if device is None:
+            device = self.mesh.device() if self.mesh is not None else cfg.device
+        self.device = resolve_device(device)
         self.model_cfg = DFNetConfig.small() if cfg.DFNet_s else DFNetConfig()
         self.compute_dtype = (torch.bfloat16 if cfg.feature_precision == "bf16"
                               else torch.float32)
@@ -217,6 +225,12 @@ class DMTrainer:
                 t.grad = torch.zeros_like(t)
         self.optimizer.step()
 
+    def reduce_grads(self) -> None:
+        """On a mesh, average F's grads over the ranks (each rank's are its
+        replicated terms plus n times its rays' share); nothing without one."""
+        if self.mesh is not None:
+            all_reduce_grads_([t for _, t in self._named], 1.0 / self.mesh.size)
+
     def _update(self, loss_fn, *args):
         """One Adam update on loss_fn(params, *args) -> (loss, aux); the
         backward reads the precision flags when it runs, so a float32 step
@@ -227,6 +241,7 @@ class DMTrainer:
             if self.cfg.check_numerics:
                 check_finite_loss(loss, f"stage-3 step {self.steps}")
             loss.backward()
+        self.reduce_grads()
         self.adam_update()
         self.steps += 1
         aux = tuple(a.detach() for a in aux) if isinstance(aux, tuple) else aux.detach()

@@ -21,6 +21,19 @@ a device tensor and an epoch's losses are read once at its end. Under
 the device through data/prefetch.py, N batches ahead of the step.
 Checkpoints are the JAX package's flat npz {"params", "state"} in its
 layout, so each package loads the other's.
+
+With a mesh (parallel/mesh.py) a step keeps the global batch's semantics:
+each rank runs the VGG16 encoder on its share of the siamese images and
+of the RVS views, the pooled features and the three taps are gathered
+back into one-device order (the taps of the siamese rows only), and the
+adapt branch,
+BatchNorm (so its statistics are the whole batch's), the upsample, the
+rolled triplet negatives, the hard-negative choice and the pose head run
+replicated on every rank. The gather's backward hands rank r the sum of
+every rank's cotangents of its rows, n times its share, so the grads
+averaged over ranks are the one-device grads. Validation, the median
+error and the pre-render's consumers stay replicated (the renders
+themselves split their ray axis in FrozenNeRF).
 """
 
 from __future__ import annotations
@@ -39,11 +52,19 @@ from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.dfnet import (
     DFNet,
     DFNetConfig,
+    dfnet_encode,
     dfnet_forward,
+    dfnet_head,
     dfnet_params_from_jax,
     dfnet_params_to_jax,
     conv_precision,
     init_dfnet_params,
+)
+from dfnet_tpu_torch.parallel.mesh import (
+    all_reduce_grads_,
+    gather_rows,
+    row_counts,
+    shard_rows,
 )
 from dfnet_tpu_torch.pose import perturb_single_render_pose
 from dfnet_tpu_torch.training.callbacks import EarlyStopping, ReduceLROnPlateau
@@ -71,15 +92,14 @@ def load_dfnet_params(path: str, device="cpu") -> Tuple[Dict, Dict]:
 
 class FeatureTrainer:
     def __init__(self, cfg: Config, scene: SceneData, nerf: Optional[FrozenNeRF],
-                 device=None, gen: Optional[torch.Generator] = None):
-        if int(cfg.mesh_shape or 1) > 1:
-            raise NotImplementedError(
-                "a device mesh (multi-GPU training) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 10)")
+                 device=None, gen: Optional[torch.Generator] = None, mesh=None):
         self.cfg = cfg
         self.scene = scene
         self.nerf = nerf
-        self.device = resolve_device(device if device is not None else cfg.device)
+        self.mesh = mesh
+        if device is None:
+            device = mesh.device() if mesh is not None else cfg.device
+        self.device = resolve_device(device)
         self.model_cfg = DFNetConfig.small() if cfg.DFNet_s else DFNetConfig()
         if gen is None:
             gen = torch.Generator().manual_seed(cfg.rng_seed)
@@ -148,11 +168,16 @@ class FeatureTrainer:
         nb = targets.shape[0]
         rvs = cfg.random_view_synthesis
         x = torch.cat([targets, rgbs] + ([rgb_perturb] if rvs else []), 0)
-        (f_t, f_r), predict, new_state = dfnet_forward(
-            params, state, x, self.model_cfg, return_feature=True,
-            is_single_stream=False, feature_count=2 * nb,
-            upsample_h=self.scene.H, upsample_w=self.scene.W,
-            train_bn=not cfg.freezeBN, compute_dtype=self.compute_dtype)
+        kw = dict(return_feature=True, is_single_stream=False, feature_count=2 * nb,
+                  upsample_h=self.scene.H, upsample_w=self.scene.W,
+                  train_bn=not cfg.freezeBN, compute_dtype=self.compute_dtype)
+        if self.mesh is None:
+            (f_t, f_r), predict, new_state = dfnet_forward(params, state, x,
+                                                           self.model_cfg, **kw)
+        else:
+            pooled, taps = self.encode_sharded(params, x, 2 * nb)
+            (f_t, f_r), predict, new_state = dfnet_head(params, state, pooled, taps,
+                                                        self.model_cfg, **kw)
         loss_pose = pose_loss(predict[:2 * nb], torch.cat([poses12, poses12], 0))
         if cfg.tripletloss:
             loss_f = triplet_loss_hard_negative_mining_plus(
@@ -168,9 +193,48 @@ class FeatureTrainer:
             return loss_f, new_state
         return loss_pose + loss_f, new_state
 
+    def encode_sharded(self, params: Dict, x: torch.Tensor, n_feat: int):
+        """dfnet_encode of the images x on a mesh: every rank gets the
+        (N, 512) pooled features and the taps of the first n_feat images
+        (the adapt branch's), in x's order. Each rank encodes its share of
+        those n_feat images and its share of the rest (the pose-only RVS
+        views), so the taps, the bulk of the bytes, split evenly; they ride
+        one all-gather in their compute dtype, every image's float32 pooled
+        features a second."""
+        n = x.shape[0]
+        lo, hi = shard_rows(n_feat)
+        lo2, hi2 = shard_rows(n - n_feat)
+        mine = torch.cat([x[lo:hi], x[n_feat + lo2:n_feat + hi2]], 0)
+        pooled, taps = dfnet_encode(params, mine, self.model_cfg,
+                                    compute_dtype=self.compute_dtype)
+        k = hi - lo
+        flat = torch.cat([t[:k].flatten(1) for t in taps], 1)
+        parts = gather_rows(flat, row_counts(n_feat)).split(
+            [t[0].numel() for t in taps], 1)
+        all_taps = [part.reshape((n_feat,) + t.shape[1:]) for part, t in zip(parts, taps)]
+        # rank r sends its feature images' pooled rows, then its other
+        # images': regroup them into x's order
+        cf, cr = row_counts(n_feat), row_counts(n - n_feat)
+        got = gather_rows(pooled, [a + b for a, b in zip(cf, cr)]).split(
+            [c for pair in zip(cf, cr) for c in pair])
+        all_pooled = torch.cat(got[0::2] + got[1::2], 0)
+        return all_pooled, all_taps
+
     def train_step(self, targets, rgbs, poses12, rgb_perturb, pose_perturb12,
                    lr: float) -> torch.Tensor:
         """One update; returns the loss as a device tensor."""
+        loss, new_state = self.loss_and_grads(targets, rgbs, poses12, rgb_perturb,
+                                              pose_perturb12)
+        self.net.state = new_state
+        self.adam_update(lr)
+        self.steps += 1
+        return loss
+
+    def loss_and_grads(self, targets, rgbs, poses12, rgb_perturb=None,
+                       pose_perturb12=None):
+        """(loss, new_state) of one batch, the loss detached and its grads
+        in the leaves' .grad (on a mesh, averaged over the ranks: the
+        batch's grads on every rank)."""
         # the backward's convs read the precision flags when they run, so a
         # float32 step keeps them as its forward has them
         with conv_precision(self.compute_dtype):
@@ -180,10 +244,9 @@ class FeatureTrainer:
                 check_finite_loss(loss, f"stage-2 step {self.steps}")
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
-        self.net.state = new_state
-        self.adam_update(lr)
-        self.steps += 1
-        return loss.detach()
+        if self.mesh is not None:
+            all_reduce_grads_([t for _, t in self._named], 1.0 / self.mesh.size)
+        return loss.detach(), new_state
 
     def adam_update(self, lr: float) -> None:
         """Adam at lr on the leaves' grads, with optax's semantics: a leaf

@@ -18,6 +18,12 @@ A vanilla NeRF (NeRFH=False) renders through the plain renderer only
 in the JAX package). Where the JAX package fails on one, a `.tar` load
 and render_fn_batch, the port raises NotImplementedError instead.
 
+With a mesh (parallel/mesh.py) every render splits its ray axis across
+the ranks, as the JAX package's does: each rank renders its slice (the
+no-grad renders through the kernels per rank, render_fn and
+render_fn_batch through the plain renderer with autograd) and the slices
+are gathered, differentiably, so a pose gradient reaches every rank's rays.
+
 The JAX package's compile cache (aot_jit) has no counterpart: the kernels
 are built once per source hash by ops/build.py.
 """
@@ -35,6 +41,7 @@ from dfnet_tpu_torch.convert import convert_nerf_checkpoint
 from dfnet_tpu_torch.device import resolve_device
 from dfnet_tpu_torch.models.factory import create_nerfh, render_settings
 from dfnet_tpu_torch.ops.resize import resize_bicubic
+from dfnet_tpu_torch.parallel.mesh import gather_rows, row_counts, shard_rows
 from dfnet_tpu_torch.pose.se3 import rescale_poses_to_nerf
 from dfnet_tpu_torch.render import fast as fast_mod
 from dfnet_tpu_torch.render.rays import get_rays
@@ -58,15 +65,14 @@ class FrozenNeRF:
     def __init__(self, cfg: Config, hwf, near: float, far: float,
                  world_setup: Dict, params: Optional[Dict] = None,
                  model: Optional[NeRFHModel] = None, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (multi-GPU render) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 10)")
         self.cfg = cfg
         self.H, self.W = int(hwf[0]), int(hwf[1])
         self.focal = float(hwf[2])
         self.world_setup = world_setup
-        self.device = resolve_device(device if device is not None else cfg.device)
+        self.mesh = mesh
+        if device is None:
+            device = mesh.device() if mesh is not None else cfg.device
+        self.device = resolve_device(device)
         if model is None:
             model, init_params = create_nerfh(
                 cfg, torch.Generator().manual_seed(cfg.rng_seed), self.device)
@@ -143,7 +149,7 @@ class FrozenNeRF:
         renderer, differentiable in the pose and the params."""
         out = render_image_grad(params, self.model, self._to_nerf(pose_apr), hist,
                                 self.rh, self.rw, self.rf, self.settings,
-                                chunk=self.chunk)
+                                chunk=self.chunk, mesh=self.mesh)
         return self._upsample(out["rgb"])
 
     def render_fn_batch(self, params: Dict, poses_apr: torch.Tensor,
@@ -165,10 +171,15 @@ class FrozenNeRF:
         ro = torch.stack([o for o, _ in rays]).reshape(-1, 3)
         rd = torch.stack([d for _, d in rays]).reshape(-1, 3)
         hist_r = hists.repeat_interleave(hw, 0)
+        if self.mesh is not None:
+            lo, hi = shard_rows(ro.shape[0])
+            ro, rd, hist_r = ro[lo:hi], rd[lo:hi], hist_r[lo:hi]
         ck = min(self.chunk, ro.shape[0])
         rgb = torch.cat([render_rays(params, self.model, o, d, h, self.settings)["rgb"]
                          for o, d, h in zip(ro.split(ck), rd.split(ck),
                                             hist_r.split(ck))], 0)
+        if self.mesh is not None:
+            rgb = gather_rows(rgb, row_counts(b * hw))
         return self._upsample(rgb.reshape(b, self.rh, self.rw, 3))
 
     @torch.no_grad()
@@ -183,7 +194,7 @@ class FrozenNeRF:
         out = fast_mod.render_image_fast(
             self.params, self.model, self._to_nerf(pose_apr), hist, self.rh, self.rw,
             self.rf, self.settings, chunk=self.chunk, use_proposal=cfg.proposal_render,
-            **fast_mod.cull_schedule_kwargs(cfg))
+            mesh=self.mesh, **fast_mod.cull_schedule_kwargs(cfg))
         return self._upsample(out["rgb"])
 
     def prerender_views(self, poses: np.ndarray, hists: np.ndarray,

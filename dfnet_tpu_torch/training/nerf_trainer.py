@@ -13,6 +13,17 @@ the params and the Adam state in the JAX package's layout.
 Random draws come from explicit generators: `gen` (on the device) for the
 pixel selection and the render's samples, a numpy generator for the
 epoch order; the params are initialised from a CPU generator.
+
+With a mesh (parallel/mesh.py; the JAX package's ray-data-parallel step)
+every rank draws the step's pixel selection and every random tensor of
+its render at the batch's shape from the same generator (RowShard) and
+keeps its rows, so world n draws what world 1 draws at any perturb. Each
+rank's loss is a mean over its rays, weighted by its share of N_rand, and
+the weighted grads are summed over ranks: every stage-1 loss term is a
+mean over rays, so that is the one-device gradient for any split. The
+kernels run per rank on its rays. Eval renders split the ray axis
+(render_image_fast or render_image with mesh=); rank 0 writes the
+checkpoints and images.
 """
 
 from __future__ import annotations
@@ -38,11 +49,13 @@ from dfnet_tpu_torch.models.losses import (
     to8b,
 )
 from dfnet_tpu_torch.models.nerfw import nerfw_apply_rays
+from dfnet_tpu_torch.parallel.mesh import all_reduce_grads_, is_main, shard_rows
 from dfnet_tpu_torch.render.fused_train import (
     fused_train_supported,
     render_rays_train_fused,
 )
 from dfnet_tpu_torch.render.rays import get_rays
+from dfnet_tpu_torch.render.sampling import RowShard
 from dfnet_tpu_torch.render.volume import (
     NeRFHModel,
     RenderSettings,
@@ -131,10 +144,13 @@ class NeRFTrainer:
     """Owns the model, params, optimizer, train step and render function."""
 
     def __init__(self, cfg: Config, scene: SceneData, device=None,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, mesh=None):
         self.cfg = cfg
         self.scene = scene
-        self.device = resolve_device(device if device is not None else cfg.device)
+        self.mesh = mesh
+        if device is None:
+            device = mesh.device() if mesh is not None else cfg.device
+        self.device = resolve_device(device)
         if gen is None:
             gen = torch.Generator().manual_seed(cfg.rng_seed)
         self.model, params = create_nerfh(cfg, gen, self.device)
@@ -169,26 +185,53 @@ class NeRFTrainer:
         """One update on N_rand random pixels of train image `idx` at the
         given epoch (default: global_step, which is the epoch the CLI
         trains); returns (loss, psnr) as device tensors."""
-        cfg, sc = self.cfg, self.scene
         if epoch is None:
             epoch = self.global_step
+        loss, mse = self.loss_and_grads(
+            *self.draw_batch(idx), epoch,
+            where=f"the stage-1 step of epoch {epoch} on train image {idx}")
+        self.adam_update(lr)
+        return loss, mse2psnr(mse)
+
+    def draw_batch(self, idx: int):
+        """(rays_o, rays_d, target, hist) of N_rand pixels of train image
+        `idx` drawn without repeats from `gen`: the whole batch, on every
+        rank of a mesh."""
+        sc = self.scene
         rays_o, rays_d = get_rays(sc.H, sc.W, sc.focal, self._poses[idx])
         sel = torch.randperm(sc.H * sc.W, generator=self.gen,
-                             device=self.device)[:cfg.N_rand]
-        rays_o = rays_o.reshape(-1, 3)[sel]
-        rays_d = rays_d.reshape(-1, 3)[sel]
-        target = self._images[idx].reshape(-1, 3)[sel]
-        hist = self._hists[idx]
+                             device=self.device)[:self.cfg.N_rand]
+        return (rays_o.reshape(-1, 3)[sel], rays_d.reshape(-1, 3)[sel],
+                self._images[idx].reshape(-1, 3)[sel], self._hists[idx])
+
+    def loss_and_grads(self, rays_o, rays_d, target, hist, epoch: float,
+                       where: str = "a stage-1 step"):
+        """(loss, fine-rgb MSE) of a ray batch with one histogram, both
+        detached, and the batch's grads in the leaves' .grad; under
+        check_numerics a non-finite loss raises FloatingPointError naming
+        `where` before the backward (on a mesh, this rank's). On a mesh,
+        the loss and grads of the whole batch on every rank: this rank
+        renders its rows (random draws at the batch's shape, RowShard), and
+        its grads and values, weighted by its share of the rays, are summed
+        over ranks in one all-reduce."""
+        n, gen = rays_o.shape[0], self.gen
+        if self.mesh is not None:
+            lo, hi = shard_rows(n)
+            rays_o, rays_d, target = rays_o[lo:hi], rays_d[lo:hi], target[lo:hi]
+            gen = RowShard(self.gen, lo, hi, n)
         hist_b = hist[None].expand((rays_o.shape[0],) + hist.shape)
-        loss, mse = stage1_loss(self.params, self.model, cfg, self.settings,
-                                rays_o, rays_d, target, hist_b, self.gen,
+        loss, mse = stage1_loss(self.params, self.model, self.cfg, self.settings,
+                                rays_o, rays_d, target, hist_b, gen,
                                 self.uses_fused_train, epoch)
-        if cfg.check_numerics:
-            check_finite_loss(loss, f"the stage-1 step of epoch {epoch} on train image {idx}")
+        if self.cfg.check_numerics:
+            check_finite_loss(loss, where)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        self.adam_update(lr)
-        return loss.detach(), mse2psnr(mse.detach())
+        loss, mse = loss.detach(), mse.detach()
+        if self.mesh is not None:
+            loss, mse = all_reduce_grads_([t for _, t in self._named],
+                                          rays_o.shape[0] / n, torch.stack([loss, mse]))
+        return loss, mse
 
     def adam_update(self, lr: float) -> None:
         """Adam (ADAM_HYPER, bias-corrected: optax's adam) on the leaves'
@@ -221,7 +264,11 @@ class NeRFTrainer:
         from dfnet_tpu_torch.render import fast as fast_mod
         from dfnet_tpu_torch.render.volume import render_image
 
-        self.uses_fast_render = (cfg.fast_render and cfg.reduce_embedding != 2
+        mesh = self.mesh
+        # under a mesh the kernels serve whenever they can, as in the JAX
+        # package (its render_image_sharded takes no fast_render flag)
+        self.uses_fast_render = ((cfg.fast_render or mesh is not None)
+                                 and cfg.reduce_embedding != 2
                                  and fast_mod.fast_path_supported(
                                      model, self.settings_test))
         if self.uses_fast_render:
@@ -229,12 +276,13 @@ class NeRFTrainer:
                 return fast_mod.render_image_fast(
                     params, model, pose, hist, eh, ew, ef, self.settings_test,
                     chunk=chunk, use_proposal=cfg.proposal_render,
-                    **fast_mod.cull_schedule_kwargs(cfg))
+                    **fast_mod.cull_schedule_kwargs(cfg), mesh=mesh)
         else:
             def render_one(params, pose, hist, epoch):
                 ep = epoch if cfg.reduce_embedding == 2 else None
                 return render_image(params, model, pose, hist, eh, ew, ef,
-                                    self.settings_test, chunk=chunk, epoch=ep)
+                                    self.settings_test, chunk=chunk, epoch=ep,
+                                    mesh=mesh)
         self._render = render_one
         self._render_factor = rf
 
@@ -243,7 +291,8 @@ class NeRFTrainer:
                      video_base: Optional[str] = None) -> float:
         """Render a split at test settings at epoch global_step (the
         reference's eval epoch: the epochs trained, or the checkpoint's
-        step under --render_test); returns the mean PSNR. With savedir,
+        step under --render_test); returns the mean PSNR. On a mesh every
+        rank renders its rays of each view and rank 0 writes. With savedir,
         writes <j>.png, <j>_GT.png and <j>_disp.png per view (disp over its
         own max). With video_base, also writes the videos <base>_rgb.png
         and <base>_disp.png (write_video; disp over the split's max), as
@@ -268,13 +317,13 @@ class NeRFTrainer:
             if video_base:
                 rgbs.append(rgb)
                 disps.append(disp)
-            if savedir:
+            if savedir and is_main():
                 os.makedirs(savedir, exist_ok=True)
                 write_png(osp.join(savedir, f"{j:03d}.png"), to8b(rgb))
                 write_png(osp.join(savedir, f"{j:03d}_GT.png"), to8b(gt))
                 write_png(osp.join(savedir, f"{j:03d}_disp.png"),
                           to8b(disp / max(disp.max(), 1e-8)))
-        if video_base and rgbs:
+        if video_base and rgbs and is_main():
             write_video(video_base + "_rgb", np.stack(rgbs))
             d = np.stack(disps)
             write_video(video_base + "_disp", d / max(d.max(), 1e-8))

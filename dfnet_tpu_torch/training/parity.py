@@ -156,12 +156,13 @@ def dm_pose_bias(pose: np.ndarray) -> np.ndarray:
 DM_WORLD = {"pose_scale": 0.8, "pose_scale2": 1.25, "move_all_cam_vec": [0.1, -0.05, 0.2]}
 
 
-def dm_trainer(base: str, device, *flags):
+def dm_trainer(base: str, device, *flags, mesh=None):
     """A DMTrainer at DM_FLAGS (plus `flags`) on the 48x64 synthetic scene
     of 6 train and 3 val views under DM_WORLD, from seeded port inits that
     the first call writes under `base`: a NeRF-H checkpoint, and a DFNet
     one whose pose head is biased by dm_pose_bias. The same params on
-    every device."""
+    every device. `mesh`: the data mesh its renders split over (called on
+    each of its ranks)."""
     from dfnet_tpu_torch.training.dm_trainer import DMTrainer
     from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
 
@@ -178,7 +179,7 @@ def dm_trainer(base: str, device, *flags):
         save_pytree(ckpt, {"params": params, "state": state})
     cfg = parse_args(argv + ["--device", str(device)], stage="dm")
     nerf = FrozenNeRF.from_experiment(cfg.replace(tinyimg=True, tinyscale=4.0), sc.hwf,
-                                      sc.near, sc.far, sc.world_setup)
+                                      sc.near, sc.far, sc.world_setup, mesh=mesh)
     return DMTrainer(cfg, sc, nerf)
 
 
@@ -194,7 +195,8 @@ def dm_loss_and_grads(trainer, image, pose12, hist,
     DM gradient is not smooth in the pose: a float64 run's dL/dpose moves
     by up to 0.8% of its scale when the pose moves by 1e-7, below float32's
     rounding of it (scripts/dm_diag.py), so two devices' float32 steps are
-    compared at one render pose."""
+    compared at one render pose. On a mesh the grads are averaged over its
+    ranks, as the trainer's step averages them."""
     args = [torch.as_tensor(a).to(trainer.device) for a in (image, pose12, hist)]
     seen, render = {}, trainer.render
 
@@ -213,6 +215,7 @@ def dm_loss_and_grads(trainer, image, pose12, hist,
             loss, psnr = trainer.loss_fn(trainer.params, trainer.nerf.params,
                                          trainer.feat_params, *args)
             loss.backward()
+        trainer.reduce_grads()
     finally:
         trainer.render = render
     grads = {k: (t.grad if t.grad is not None else torch.zeros_like(t)).cpu().numpy()

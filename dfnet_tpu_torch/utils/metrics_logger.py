@@ -9,8 +9,13 @@ import os
 import os.path as osp
 import time
 
+from dfnet_tpu_torch.parallel.mesh import is_main
+
 
 class MetricsLogger:
+    """On a mesh (parallel/mesh.py) only rank 0 writes; every rank gets the
+    record back."""
+
     def __init__(self, expdir: str, name: str = "metrics"):
         os.makedirs(expdir, exist_ok=True)
         self.path = osp.join(expdir, f"{name}.jsonl")
@@ -23,6 +28,7 @@ class MetricsLogger:
                 rec[k] = float(v)
             except (TypeError, ValueError):
                 rec[k] = v
-        with open(self.path, "a") as fh:
-            fh.write(json.dumps(rec) + "\n")
+        if is_main():
+            with open(self.path, "a") as fh:
+                fh.write(json.dumps(rec) + "\n")
         return rec

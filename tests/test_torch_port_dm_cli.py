@@ -4,7 +4,7 @@ and val loss and PSNR each epoch and a median error; `--eval` of its best
 checkpoint gives the median error that the JAX package's
 `cli.dm.evaluate` prints for the same file; the reference's `.pt` DFNet
 and `.tar` NeRF give the losses of the `.npz` files they were exported
-from; --mesh_shape above 1 refuses."""
+from; --mesh_shape 0 on the CPU refuses."""
 
 import contextlib
 import io
@@ -112,13 +112,15 @@ def test_eval_of_the_best_checkpoint_gives_jax_median_error(stage3, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--mesh_shape", "2"], "item 10"),
+    (["--mesh_shape", "0"], "item 10"),
     (["--pretrain_model_path", "dfnet.pt"], "item 7"),
     (["--ft_path", "nerf.tar"], "item 7"),
 ])
 def test_unported_flags_refuse(stage2, stage3, tmp_path, flags, item):
-    """--mesh_shape above 1 (ROADMAP.md Queue 1 item 10) still refuses
-    before anything is written. A `.pt` exported from the stage-2
+    """A mesh the device cannot hold refuses before anything is written:
+    --mesh_shape 0 means every local GPU, and on the CPU it raises
+    ValueError (the mesh itself, ROADMAP.md Queue 1 item 10, runs: tests/
+    test_torch_port_mesh_cli.py). A `.pt` exported from the stage-2
     checkpoint (as DFNet F and G) and a `.tar` exported from the stage-1
     checkpoint (the NeRF, via --ft_path) run (Queue 1 item 7): epoch 0
     from either gives the losses and PSNRs of epoch 0 from the `.npz`
@@ -127,7 +129,7 @@ def test_unported_flags_refuse(stage2, stage3, tmp_path, flags, item):
     argv = STAGE3 + ["--basedir", str(tmp_path), "--pretrain_model_path", ckpt,
                      "--device", "cpu"]
     if item == "item 10":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
+        with pytest.raises(ValueError, match="mesh_shape 0 means every local GPU"):
             cli.main(argv + flags)
         assert not os.path.exists(tmp_path / "dfnetdm")
         return

@@ -2,7 +2,7 @@
 and evaluates on a stage-1 checkpoint the test writes, `--eval` of a
 JAX-written DFNet checkpoint gives the JAX package's median error,
 --render_feature_only, a reference `.pt` and --vgg_init_path run, and
---mesh_shape above 1 refuses."""
+--mesh_shape 0 on the CPU refuses."""
 
 import os
 import re
@@ -91,18 +91,20 @@ def test_eval_of_a_jax_checkpoint_gives_jax_median_error(base, capsys):
     (["--render_feature_only"], "item 6"),
     (["--pretrain_model_path", "dfnet.pt"], "item 7"),
     (["--vgg_init_path", "vgg16.pth"], "item 7"),
-    (["--mesh_shape", "2"], "item 10"),
+    (["--mesh_shape", "0"], "item 10"),
 ])
 def test_unported_flags_refuse(base, flags, item, monkeypatch, capsys):
-    """--mesh_shape above 1 (ROADMAP.md Queue 1 item 10) still refuses
-    before anything is written. The flags of items 6 and 7 run:
+    """A mesh the device cannot hold refuses before anything is written:
+    --mesh_shape 0 means every local GPU, and on the CPU it raises
+    ValueError (the mesh itself, ROADMAP.md Queue 1 item 10, runs: tests/
+    test_torch_port_mesh_cli.py). The flags of items 6 and 7 run:
     --render_feature_only writes the saliency maps of every train view
     and its render under ./tmp/features; --eval of a reference .pt prints
     the median error of the .npz it was exported from; --vgg_init_path
     starts the encoder from a torchvision VGG16 state dict and trains."""
     argv = STAGE2 + ["--basedir", str(base), "--device", "cpu"]
     if item == "item 10":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
+        with pytest.raises(ValueError, match="mesh_shape 0 means every local GPU"):
             cli.train(argv + flags)
         assert not os.path.exists(base / "dfnet")
         return

@@ -25,6 +25,7 @@ from dfnet_tpu.training.checkpoints import save_pytree as jax_save_pytree
 from dfnet_tpu.training.nerf_renderer import FrozenNeRF as JaxFrozenNeRF
 from dfnet_tpu_torch.config import parse_args
 from dfnet_tpu_torch.ops.resize import resize_bicubic, resize_bilinear_align_corners
+from dfnet_tpu_torch.parallel.mesh import Mesh
 from dfnet_tpu_torch.pose.se3 import rescale_poses_to_nerf
 from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
 
@@ -125,8 +126,10 @@ def test_prerender_views_matches_jax(exp, tiny, capsys):
 def test_frozen_nerf_refuses_what_is_not_ported(exp, tmp_path, capsys):
     """Without a checkpoint: random weights and a warning. A reference .tar
     loads (the JAX checkpoint's coarse and fine nets and embeddings,
-    exported by JAX's converter; no proposal net). A device mesh still
-    refuses (ROADMAP.md, Queue 1 item 10)."""
+    exported by JAX's converter; no proposal net). A device mesh is taken
+    (ROADMAP.md, Queue 1 item 10): outside a process group its helpers are
+    the identity, so the render is the meshless one bit for bit (the mesh's
+    own renders: tests/test_torch_port_mesh.py)."""
     base, sc = exp
     cfg = parse_args(SMALL + ["--basedir", str(tmp_path), "--device", "cpu"],
                      stage="nerf")
@@ -140,8 +143,11 @@ def test_frozen_nerf_refuses_what_is_not_ported(exp, tmp_path, capsys):
         for layer, p in tree["params"][k].items():
             for leaf, v in p.items():
                 np.testing.assert_array_equal(nerf.params[k][layer][leaf].numpy(), v)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FrozenNeRF(cfg, sc.hwf, sc.near, sc.far, WORLD, mesh=object())
+    meshed = FrozenNeRF(cfg, sc.hwf, sc.near, sc.far, WORLD, params=nerf.params,
+                        mesh=Mesh(2, "cpu"))
+    assert meshed.mesh == Mesh(2, "cpu") and meshed.device.type == "cpu"
+    np.testing.assert_array_equal(meshed.render_at_pose(sc.val.poses[0], sc.val.hists[0]),
+                                  nerf.render_at_pose(sc.val.poses[0], sc.val.hists[0]))
 
 
 @pytest.mark.parametrize("shape,out", [

@@ -951,3 +951,67 @@ def test_zoo_forward_on_the_card_matches_the_cpu(cuda, name, shape):
     x = torch.rand(shape, generator=torch.Generator().manual_seed(0))
     ok, ratio = parity.zoo_agreement(name, x, cuda)
     assert ok, ratio
+
+
+# ---------------------------------------------------------------------------
+# the data mesh (parallel/mesh.py): two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+def _mesh_on_card():
+    from dfnet_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(2, "cuda", share_device=True)
+
+
+@pytest.mark.gpu
+def test_collectives_on_cuda_tensors_over_gloo(cuda):
+    """gather_rows (uneven rows, forward and backward) and all_reduce_grads_
+    (a leaf without a grad on rank 0) on CUDA tensors of two ranks sharing
+    cuda:0 over gloo, against their closed forms on every rank."""
+    from dfnet_tpu_torch.parallel.checks import collectives
+    from dfnet_tpu_torch.parallel.mesh import launch
+
+    res = launch(collectives, _mesh_on_card(), "cuda:0")
+    assert len(res) == 2
+    for r in res:
+        assert r["device"] == "cuda:0"
+        for k in ("gathered", "grad"):
+            np.testing.assert_array_equal(r[k], r["want_" + k], err_msg=k)
+        for k in ("a", "b", "extra"):
+            np.testing.assert_allclose(r[k], r["want_" + k], rtol=1e-6, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_stage1_step_world2_on_one_card_matches_world1(cuda):
+    """The stage-1 kernel step (D=2 W=32, 16 + 16 samples, 301 rays,
+    perturb and sigma noise on) at world 2, two ranks sharing cuda:0, against
+    world 1 on the card: the loss and MSE within rtol 1e-5, every grad
+    within one bf16 rounding of each rank's share, of the one-device grad
+    and of the leaf's scale (the kernel returns the packed weights' grads in
+    bf16, so each rank's share is rounded before the sum; the CPU tests'
+    bar, tests/test_torch_port_mesh.py::_bf16_bar), and each rank launches
+    fine_raw_t and raw_bwd_t twice."""
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.parallel.checks import stage1_step
+    from dfnet_tpu_torch.parallel.mesh import launch
+
+    cfg = parse_args(["--NeRFH", "--encode_hist", "--dataset_type", "synthetic",
+                      "--netdepth", "2", "--netwidth", "32", "--netdepth_fine", "2",
+                      "--netwidth_fine", "32", "--N_samples", "16", "--N_importance", "16",
+                      "--N_rand", "301", "--raw_noise_std", "0.5", "--device", "cuda"],
+                     stage="nerf")
+    sc = make_synthetic_scene(n_train=3, n_val=1, H=24, W=32, focal=30.0, seed=0)
+    mesh = _mesh_on_card()
+    w1 = stage1_step(cfg, sc, idx=1)
+    w2 = launch(stage1_step, mesh, cfg, sc, None, mesh, 1)
+    assert w1["fused"] and w2["fused"]
+    assert np.isclose(w2["loss"], w1["loss"], rtol=1e-5, atol=0), (w2["loss"], w1["loss"])
+    assert np.isclose(w2["mse"], w1["mse"], rtol=1e-5, atol=0)
+    for k, w in w1["grads"].items():
+        g, w = np.asarray(w2["grads"][k], np.float64), np.asarray(w, np.float64)
+        bound = 2.0 ** -8 * (sum(np.abs(s[k]) for s in w2["shares"]) + np.abs(w)
+                             + max(np.abs(w).max(), 1e-12))
+        assert (np.abs(g - w) <= bound).all(), k
+    for counts in w2["launches"]:
+        assert counts["fine_raw_t"] == 2 and counts["raw_bwd_t"] == 2, w2["launches"]
