@@ -2887,6 +2887,178 @@ def phase_mesh(device, mesh=None, sizes=MESH_SIZES):
     return res
 
 
+TAIL_EPOCHS = 10             # quality_synthetic stage 1 (of the protocol's 301)
+TAIL_STAGE2_EPOCHS = 2       # its stage-2 leg (of 12)
+TAIL_FAST_TOL_DB = 0.2       # QUALITY.md:132: each kernel path within 0.2 dB of plain
+TAIL_TOL = 1e-5              # ndc_rays, warps and masks, card against CPU
+
+
+def phase_tail(device):
+    """The last modules and the protocol drivers. ndc_rays and the
+    homography suite (warp_points, inv_warp_image_batch bilinear and
+    nearest, compute_valid_mask) on the card against the CPU within
+    TAIL_TOL, the mask bit for bit after erosion at r = 1..4 (and the card's
+    erosion of the card's own mask equal to the CPU's of the same bits);
+    Kalman3D smoother than its input; vis_pose writing a 400x300 PNG with matplotlib never
+    imported; parity_7scenes --dryrun on the card (its three legs at
+    --max_render_views 2, the .tar/.pt round trips bit-exact inside, the
+    three printed lines); quality_synthetic's stage 1 at TAIL_EPOCHS
+    epochs, its four render paths (each kernel path within TAIL_FAST_TOL_DB
+    of the plain render) and its stage-2 leg at TAIL_STAGE2_EPOCHS, with
+    launches counted from 0 over each part: training must launch
+    fine_raw_t and raw_bwd_t, the renders and the stage-2 leg coarse_sigma_t
+    and fine_raw_t, the parity dry run (the plain renderer) none. Records
+    whether matplotlib and cv2 are installed and, where cv2 is, holds the
+    card's erosion to cv2.erode bit for bit. `[tail]` lines."""
+    import importlib.util
+
+    import torch
+
+    from dfnet_tpu_torch.data.png import read_png
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.render.rays import get_rays, ndc_rays
+    from dfnet_tpu_torch.scripts import parity_7scenes, quality_synthetic as qs
+    from dfnet_tpu_torch.utils import homography as hom
+    from dfnet_tpu_torch.utils.kalman import Kalman3D
+    from dfnet_tpu_torch.utils.visualization import vis_pose
+
+    cpu = torch.device("cpu")
+    res, launches = {}, {}
+    rng = np.random.default_rng(0)
+
+    # ndc_rays: the shipped 240x320 camera, card against CPU
+    c2w = np.concatenate([np.eye(3), rng.normal(0, 0.3, (3, 1))], 1).astype(np.float32)
+    o, d = get_rays(240, 320, 292.5, torch.as_tensor(c2w))
+    got = ndc_rays(240, 320, 292.5, 0.5, o.to(device), d.to(device))
+    want = ndc_rays(240, 320, 292.5, 0.5, o, d)
+    err = max(float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+    res["ndc_rays_rel_err"] = err
+    if not err <= TAIL_TOL:
+        raise SystemExit(f"[tail] ndc_rays card vs CPU {err:.3g} > {TAIL_TOL}")
+
+    # the homography suite at the shipped frame size, a batch of 8
+    H_img, W_img, B = 240, 320, 8
+    Hs = np.stack([hom.sample_homography_np((2, 2), shift=-1, rng=rng) for _ in range(B)])
+    Hinv = np.linalg.inv(Hs)
+    img = rng.uniform(size=(B, H_img, W_img, 3)).astype(np.float32)
+    pts = rng.uniform(-1, 1, (4096, 2))
+    errs = {"warp_points": float((hom.warp_points(pts, Hs, device=device).cpu()
+                                  - hom.warp_points(pts, Hs, device=cpu)).abs().max())}
+    for mode in ("bilinear", "nearest"):
+        errs[f"inv_warp_{mode}"] = float(
+            (hom.inv_warp_image_batch(img, Hinv, mode, device=device).cpu()
+             - hom.inv_warp_image_batch(img, Hinv, mode, device=cpu)).abs().max())
+    mask_gpu = hom.compute_valid_mask((H_img, W_img), Hinv, device=device)
+    mask_cpu = hom.compute_valid_mask((H_img, W_img), Hinv, device=cpu)
+    errs["valid_mask"] = float((mask_gpu.cpu() - mask_cpu).abs().max())
+    eroded = {}
+    for r in range(1, 5):
+        e_gpu = hom.compute_valid_mask((H_img, W_img), Hinv, r, device=device).cpu()
+        e_cpu = hom.compute_valid_mask((H_img, W_img), Hinv, r, device=cpu)
+        same_bits = bool(torch.equal(hom.erode(mask_gpu, r).cpu(), hom.erode(mask_gpu.cpu(), r)))
+        eroded[r] = dict(equal=bool(torch.equal(e_gpu, e_cpu)), erode_same_bits=same_bits,
+                         kept=float(e_gpu.mean()))
+    if importlib.util.find_spec("cv2") is not None:
+        # where cv2 is installed (the GPU machine has it), the card's
+        # erosion against cv2.erode itself, as the CPU tests hold it
+        import cv2
+
+        for r in range(1, 5):
+            el = cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (2 * r, 2 * r))
+            want = np.stack([cv2.erode(m, el, iterations=1) for m in mask_gpu.cpu().numpy()])
+            eroded[r]["equal_cv2"] = bool(np.array_equal(hom.erode(mask_gpu, r).cpu().numpy(),
+                                                         want))
+    res.update(homography=errs, erosion=eroded, mask_valid_share=float(mask_gpu.mean()))
+    log(f"[tail] ndc_rays card vs CPU {err:.3g} (relative); homography card vs CPU "
+        f"{json.dumps(errs)}; eroded masks r=1..4 {json.dumps(eroded)}")
+    if not all(v <= TAIL_TOL for v in errs.values()):
+        raise SystemExit(f"[tail] homography card vs CPU above {TAIL_TOL}: {errs}")
+    if not all(v["equal"] and v["erode_same_bits"] and v.get("equal_cv2", True)
+               for v in eroded.values()):
+        raise SystemExit(f"[tail] eroded masks differ: {eroded}")
+
+    # Kalman3D and vis_pose, on this machine's packages
+    track = np.cumsum(rng.normal(0, 0.1, (200, 3)), 0)
+    noisy = track + rng.normal(0, 0.05, track.shape)
+    smooth = Kalman3D(noisy)
+    rough = lambda x: float(np.abs(np.diff(x, 2, axis=0)).mean())
+    res["kalman"] = dict(roughness_in=rough(noisy), roughness_out=rough(smooth))
+    if not rough(smooth) < rough(noisy):
+        raise SystemExit(f"[tail] Kalman3D: {res['kalman']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        png_path = vis_pose({"pose": torch.as_tensor(noisy, device=device), "pose_gt": track,
+                             "theta": rng.uniform(0, 15, len(track))},
+                            os.path.join(tmp, "vis_pose.png"))
+        shape = read_png(png_path).shape
+    mpl_imported = "matplotlib" in sys.modules
+    res["vis_pose"] = dict(shape=list(shape), matplotlib_imported=mpl_imported)
+    res["installed"] = {m: importlib.util.find_spec(m) is not None
+                        for m in ("matplotlib", "cv2", "PIL")}
+    log(f"[tail] Kalman3D {json.dumps(res['kalman'])}; vis_pose PNG {shape}, matplotlib "
+        f"imported {mpl_imported}; installed here: {json.dumps(res['installed'])}")
+    if mpl_imported or tuple(shape) != (300, 400, 3):
+        raise SystemExit(f"[tail] vis_pose: {res['vis_pose']}")
+
+    # parity_7scenes --dryrun: the three legs on the card
+    buf = io.StringIO()
+    nk.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        legs = parity_7scenes.main(["--dryrun", "--max_render_views", "2",
+                                    "--device", device.type])
+    parity_s = time.perf_counter() - t0
+    launches["tail_parity"] = dict(nk.LAUNCHES)
+    text = buf.getvalue()
+    lines = {k: text.count(k) for k in ("mean test PSNR", "median error",
+                                        "PARITY PROTOCOL COMPLETE", "round-trip bit-exact")}
+    res["parity"] = dict(seconds=parity_s, lines=lines, legs={
+        f"{d}/{'hist' if h else 'index'}": dict(psnr=float(np.mean(v["psnrs"])),
+                                                 median=[float(x) for x in v["median"]])
+        for (d, h), v in legs.items()})
+    log(f"[tail] parity_7scenes --dryrun: {parity_s:.1f} s, lines {json.dumps(lines)}, "
+        f"legs {json.dumps(res['parity']['legs'])}, launches "
+        f"{json.dumps({k: v for k, v in launches['tail_parity'].items() if v})}")
+    if lines != {"mean test PSNR": 3, "median error": 3, "PARITY PROTOCOL COMPLETE": 1,
+                 "round-trip bit-exact": 4} or any(launches["tail_parity"].values()):
+        raise SystemExit(f"[tail] parity dry run: {res['parity']}\n{text[-3000:]}")
+
+    # quality_synthetic at TAIL_EPOCHS, the four render paths, the stage-2 leg
+    cfg = qs.stage1_config([], device.type)
+    scene = qs.make_scene(device)
+    nk.reset_launches()
+    t0 = time.perf_counter()
+    tr = qs.train(cfg, scene, TAIL_EPOCHS)
+    train_s = time.perf_counter() - t0
+    launches["tail_train"] = dict(nk.LAUNCHES)
+    nk.reset_launches()
+    psnr = qs.val_psnrs(tr, scene)
+    launches["tail_render"] = dict(nk.LAUNCHES)
+    nk.reset_launches()
+    s2 = qs.stage2(tr, scene, TAIL_STAGE2_EPOCHS, device.type)
+    launches["tail_stage2"] = dict(nk.LAUNCHES)
+    plain = psnr[next(iter(qs.PATHS))]
+    gaps = {k: v - plain for k, v in psnr.items()}
+    res["quality"] = dict(epochs=TAIL_EPOCHS, steps=TAIL_EPOCHS * len(scene.train),
+                          train_s=train_s, steps_per_s=TAIL_EPOCHS * len(scene.train) / train_s,
+                          kernel_step=tr.uses_fused_train, psnr=psnr, gap_db=gaps, stage2=s2)
+    log(f"[tail] quality_synthetic: {TAIL_EPOCHS} epochs in {train_s:.1f} s "
+        f"({res['quality']['steps_per_s']:.1f} steps/s); val PSNR {json.dumps(psnr)}; "
+        f"stage 2 {json.dumps(s2)}; launches "
+        f"{json.dumps({p: {k: v for k, v in launches[p].items() if v} for p in ('tail_train', 'tail_render', 'tail_stage2')})}")
+    want = {"tail_train": ("fine_raw_t", "raw_bwd_t"),
+            "tail_render": ("coarse_sigma_t", "fine_raw_t"),
+            "tail_stage2": ("coarse_sigma_t", "fine_raw_t")}
+    ok = tr.uses_fused_train and len(psnr) == 4 and all(np.isfinite(list(psnr.values())))
+    ok &= all(abs(g) <= TAIL_FAST_TOL_DB for g in gaps.values())
+    ok &= all(launches[p][k] > 0 for p, ks in want.items() for k in ks)
+    ok &= bool(np.isfinite(s2["train_loss"]) and np.isfinite(s2["val_loss"]))
+    if not ok:
+        raise SystemExit(f"[tail] quality_synthetic failed: {json.dumps(res['quality'])} "
+                         f"{json.dumps(launches)}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2939,6 +3111,7 @@ def main() -> int:
     cases += feature["cases"]
     models = timed(phase_models, device)
     mesh = timed(phase_mesh, device)
+    tail = timed(phase_tail, device)
 
     # each kernel's row: its case on the main path it was ported for, and
     # the launches of every main path, each counted from 0 over its run
@@ -2964,7 +3137,8 @@ def main() -> int:
                      "sevenscenes": seven["launches"],
                      **{f"tools_{k}": v for k, v in tools["launches"].items()},
                      **models["launches"],
-                     **mesh.pop("launches")}
+                     **mesh.pop("launches"),
+                     **tail.pop("launches")}
     kernels = []
     for name, (asset, sched, path) in main_case.items():
         c = next(c for c in cases if c["name"] == name and c["asset"] == asset
@@ -2991,6 +3165,7 @@ def main() -> int:
     log(json.dumps({"tools": tools}))
     log(json.dumps({"models": {k: v for k, v in models.items() if k != "launches"}}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"tail": tail}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

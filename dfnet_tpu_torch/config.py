@@ -166,8 +166,13 @@ class Config:
                                         # larger-than-HBM datasets; 0 = device-resident/sync
     donate_step: bool = True            # donate params/opt_state buffers in jitted steps
     check_numerics: bool = False        # failure detection: error out on NaN/Inf in any jitted op
-    compilation_cache_dir: str = "~/.cache/dfnet_tpu/xla"  # JAX package only; parsed and unused here
-    aot_cache_dir: str = "~/.cache/dfnet_tpu/aot"  # JAX package only; parsed and unused here
+    # The JAX package's XLA and jax.export caches (its restart time). Parsed
+    # so shared config files load, and read by nothing: eager PyTorch
+    # traces nothing at start-up, and the one thing built then, the CUDA
+    # kernels, is cached by source hash in ops/build.py (start-up times:
+    # scripts/start_time.py, recorded in PERF.md).
+    compilation_cache_dir: str = "~/.cache/dfnet_tpu/xla"
+    aot_cache_dir: str = "~/.cache/dfnet_tpu/aot"     # JAX package only, likewise unread
     rng_seed: int = 0
     device: str = "cuda"                # port only: torch device of the entry points ("cpu" to opt out of the GPU)
     vgg_init_path: str = ""             # torchvision VGG16 ImageNet state-dict file, read by

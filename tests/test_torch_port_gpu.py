@@ -1015,3 +1015,43 @@ def test_stage1_step_world2_on_one_card_matches_world1(cuda):
         assert (np.abs(g - w) <= bound).all(), k
     for counts in w2["launches"]:
         assert counts["fine_raw_t"] == 2 and counts["raw_bwd_t"] == 2, w2["launches"]
+
+
+def _homographies(n: int, seed: int) -> np.ndarray:
+    from dfnet_tpu_torch.utils import homography as hom
+
+    rng = np.random.default_rng(seed)
+    return np.linalg.inv(np.stack([hom.sample_homography_np((2, 2), shift=-1, rng=rng)
+                                   for _ in range(n)]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_homography_warp_on_the_card_matches_the_cpu(cuda, mode):
+    from dfnet_tpu_torch.utils import homography as hom
+
+    Hinv = _homographies(4, seed=0)
+    img = np.random.default_rng(1).uniform(size=(4, 60, 80, 3)).astype(np.float32)
+    got = hom.inv_warp_image_batch(torch.as_tensor(img, device=cuda),
+                                   torch.as_tensor(Hinv, device=cuda), mode)
+    assert got.device.type == "cuda"
+    want = hom.inv_warp_image_batch(img, Hinv, mode, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    pts = np.random.default_rng(2).uniform(-1, 1, (500, 2))
+    torch.testing.assert_close(hom.warp_points(pts, Hinv, device=cuda).cpu(),
+                               hom.warp_points(pts, Hinv, device="cpu"), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [0, 1, 2, 3, 4])
+def test_valid_mask_on_the_card_matches_the_cpu(cuda, r):
+    from dfnet_tpu_torch.utils import homography as hom
+
+    Hinv = _homographies(3, seed=3)
+    got = hom.compute_valid_mask((61, 80), torch.as_tensor(Hinv, device=cuda), r)
+    want = hom.compute_valid_mask((61, 80), Hinv, r, device="cpu")
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+    if r:
+        base = hom.compute_valid_mask((61, 80), Hinv, device=cuda)
+        assert torch.equal(hom.erode(base, r).cpu(), hom.erode(base.cpu(), r))
