@@ -73,6 +73,20 @@ Phases (any failure exits non-zero):
                and fall, and the final val PSNR must be within
                TRAIN_PSNR_TOL_DB of the JAX package's run (JAX_TRAIN_VAL_PSNR).
                Prints train steps/s and where a step's time goes;
+  8b. train_culled — the same CLI under the culled train schedule
+               (--train_cull_q 2e-3 --train_fine_total 32, QUALITY.md's
+               production setting) for CULL_EPOCHS + 1 epochs: every step's
+               fine sweep (fine_raw_t and raw_bwd_t) at S=32 and its static
+               sweep at S=64, losses finite and falling; a warmup run
+               (--train_cull_warmup 2) must sweep S=128 in epochs 0-1 and
+               32 in epochs 2-3; the culled step (perturb 0) on the card
+               against the CPU's under the fused-train bars
+               (training/parity.py::train_step_agreement); fine_raw_t and
+               raw_bwd_t at N=1536, W=128, the fine pack, S=32 and 12
+               against their plain versions (cases of the kernels line).
+               Prints culled steps/s beside phase 8's, its step breakdown,
+               launches per epoch, val PSNR, and both schedules' steps/s
+               at W=256;
   9. feature — stage 2: the port's stage-2 CLI at the shipped stage-2 config
                (configs/config_dfnet.txt: DFNet at full width, triplet, batch
                4, RVS, tinyimg, bf16) on a 240x320 synthetic scene of 200
@@ -1011,26 +1025,54 @@ def phase_probe(device):
     return dict(widths=out, cases=cases, launches=launches, sass=sass)
 
 
-def phase_train(device):
-    """Stage-1 training through the port's CLI at the shipped config."""
+@contextlib.contextmanager
+def sweep_widths(log: list):
+    """Append (wrapper, "static" | "fine", S) of every fine_raw_t and
+    raw_bwd_t call inside the block to log."""
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+
+    orig = {n: getattr(nk, n) for n in ("fine_raw_t", "raw_bwd_t")}
+
+    def spy(name):
+        def f(*a, **k):
+            log.append((name, "static" if a[-1].static else "fine", a[3].shape[1]))
+            return orig[name](*a, **k)
+        return f
+
+    try:
+        for n in orig:
+            setattr(nk, n, spy(n))
+        yield log
+    finally:
+        for n, f in orig.items():
+            setattr(nk, n, f)
+
+
+def train_run(device, flags: list, epochs: int) -> dict:
+    """The stage-1 CLI on the synthetic scene at the shipped config plus
+    flags for epochs 0..epochs (a checkpoint and an eval at the last), in a
+    temporary basedir: each epoch's host seconds (train_epoch ends in a
+    host fetch of the loss, which waits for the card), steps, launches and
+    the (wrapper, pack, S) of its sweep calls; the wall seconds, whether
+    the checkpoint was saved, the losses, the val PSNR, the run's launches,
+    steps/s over epochs 1.. (epoch 0 loads the kernels) and its trainer."""
     import torch
 
     from dfnet_tpu_torch.cli.nerf import train
     from dfnet_tpu_torch.ops import nerf_kernels as nk
     from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
 
-    epochs, trainers = [], []
+    epochs_log, trainers = [], []
     orig = NeRFTrainer.train_epoch
 
     def timed_epoch(self, epoch):
-        """Each epoch's host seconds and launches (train_epoch ends in a
-        host fetch of the loss, which waits for the card)."""
-        before = dict(nk.LAUNCHES)
+        before, widths = dict(nk.LAUNCHES), []
         t0 = time.perf_counter()
-        out = orig(self, epoch)
-        epochs.append(dict(epoch=epoch, seconds=time.perf_counter() - t0,
-                           steps=len(self.scene.train),
-                           launches={k: nk.LAUNCHES[k] - before[k] for k in before}))
+        with sweep_widths(widths):
+            out = orig(self, epoch)
+        epochs_log.append(dict(epoch=epoch, seconds=time.perf_counter() - t0,
+                               steps=len(self.scene.train), widths=widths,
+                               launches={k: nk.LAUNCHES[k] - before[k] for k in before}))
         if not trainers:
             trainers.append(self)
         return out
@@ -1041,23 +1083,31 @@ def phase_train(device):
             nk.reset_launches()
             t0 = time.perf_counter()
             psnr = train(["--dataset_type", "synthetic", "--NeRFH", "--encode_hist",
-                          "--basedir", base, "--expname", "nerfh",
-                          "--epochs", str(TRAIN_EPOCHS),
-                          "--i_weights", str(TRAIN_EPOCHS),
-                          "--i_testset", str(TRAIN_EPOCHS), "--device", str(device)])
+                          "--basedir", base, "--expname", "nerfh", "--epochs", str(epochs),
+                          "--i_weights", str(epochs), "--i_testset", str(epochs),
+                          "--device", str(device), *flags])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(nk.LAUNCHES)
             exp = Path(base) / "nerfh"
             with open(exp / "metrics.jsonl") as fh:
                 loss = [json.loads(line)["loss"] for line in fh]
-            saved = (exp / f"{TRAIN_EPOCHS:06d}.npz").exists()
+            saved = (exp / f"{epochs:06d}.npz").exists()
     finally:
         NeRFTrainer.train_epoch = orig
-    tr = trainers[0]
+    steady = epochs_log[1:]
+    return dict(epochs=epochs_log, wall_s=wall, saved=saved, loss=loss, val_psnr=psnr,
+                launches=launches, trainer=trainers[0],
+                steps_per_s=sum(e["steps"] for e in steady) / sum(e["seconds"]
+                                                                   for e in steady))
+
+
+def phase_train(device):
+    """Stage-1 training through the port's CLI at the shipped config."""
+    run = train_run(device, [], TRAIN_EPOCHS)
+    tr, epochs, loss, psnr = run["trainer"], run["epochs"], run["loss"], run["val_psnr"]
     steps = sum(e["steps"] for e in epochs)
-    steady = epochs[1:]                      # epoch 0 loads the kernels
-    steps_per_s = sum(e["steps"] for e in steady) / sum(e["seconds"] for e in steady)
+    steps_per_s, wall, launches = run["steps_per_s"], run["wall_s"], run["launches"]
     log(f"[train] {len(epochs)} epochs, {steps} steps in {wall:.2f} s (evals and "
         f"checkpoint included); {steps_per_s:.2f} steps/s over epochs 1-"
         f"{epochs[-1]['epoch']}; loss {loss[0]:.5f} -> {loss[-1]:.5f}; val PSNR "
@@ -1069,7 +1119,7 @@ def phase_train(device):
             if e["launches"][k] != 2 * e["steps"]:
                 raise SystemExit(f"epoch {e['epoch']}: {k} launched "
                                  f"{e['launches'][k]} times in {e['steps']} steps")
-    if not saved or not np.all(np.isfinite(loss)) or not (
+    if not run["saved"] or not np.all(np.isfinite(loss)) or not (
             np.mean(loss[-3:]) < np.mean(loss[:3])):
         raise SystemExit(f"training did not save, or its loss is not finite and "
                          f"falling: {loss}")
@@ -1081,7 +1131,7 @@ def phase_train(device):
                 breakdown=step_breakdown(tr))
 
 
-def step_breakdown(tr, reps: int = 10):
+def step_breakdown(tr, reps: int = 10, tag: str = "train"):
     """Where one train step's time goes, on the trained-from-scratch state:
     the step (host clock around `reps` steps and a sync), each kernel call
     of a step (CUDA events at its captured inputs), the Adam update and the
@@ -1127,7 +1177,176 @@ def step_breakdown(tr, reps: int = 10):
     out["proposal_loss_ms"] = cuda_ms(proposal, reps=5)
     kern = sum(v for k, v in out.items() if k.startswith(("fine_raw_t", "raw_bwd_t")))
     out["glue_ms"] = out["step_ms"] - kern - out["adam_ms"] - out["proposal_loss_ms"]
-    log(f"[train] step breakdown (ms): {json.dumps(out)}")
+    log(f"[{tag}] step breakdown (ms): {json.dumps(out)}")
+    return out
+
+
+# phase_train_culled: the culled stage-1 schedule QUALITY.md:305-310
+# recommends for production training (q = 2e-3, 32 fine samples a ray)
+CULL_FLAGS = ["--train_cull_q", "2e-3", "--train_fine_total", "32"]
+CULL_EPOCHS = 10            # epochs 0-10
+CULL_WARMUP = 2             # the warmup leg: epochs 0-3, culling from epoch 2
+CULL_WIDE_EPOCHS = 2        # the W=256 legs: epochs 0-2
+CULL_KERNEL_S = (32, 12)    # fine_raw_t / raw_bwd_t cases: production nf, and JAX's tests'
+
+
+def train_step_profile(tr, steps: int = 10) -> dict:
+    """`steps` stage-1 steps of the trainer (its schedule at its global
+    step) under torch.profiler: the step's host ms, the device's busy ms a
+    step (summed device time), the idle share, and the host-to-device
+    copies a step (each from pageable memory makes the host wait for the
+    device). The idle share is None when the profiler records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lr = tr.cfg.lrate
+    tr.train_step(0, lr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tr.train_step(i % len(tr.scene.train), lr)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    ev = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / steps
+    return {"step_host_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if busy > 0 else None,
+            "htod_copies": sum(e.count for e in ev if "HtoD" in e.key) / steps}
+
+
+def culled_agreement(tr) -> dict:
+    """The culled step (perturb 0, no sigma noise) on one train batch of
+    the trainer's params: the card's kernel step against the CPU's step
+    (whose kernel wrappers run their plain versions) and against the CPU's
+    plain render_rays step with bf16 matmul operands (the kernels'
+    precision; parity.bf16_model), under the fused-train bars
+    (training/parity.py::train_step_agreement)."""
+    import torch
+
+    from dfnet_tpu_torch.training import parity
+
+    cpu = torch.device("cpu")
+    st = dataclasses.replace(tr.settings, perturb=0.0, raw_noise_std=0.0)
+    ro, rd, target, hist = tr.draw_batch(0)
+    hist = hist[None].expand(ro.shape[0], -1)
+    args = (tr.params, parity.bf16_model(tr.model), tr.cfg, st)
+    card = parity.train_step(*args, ro, rd, target, hist, True)
+    host = [t.to(cpu) for t in (ro, rd, target, hist)]
+    out = {}
+    for name, fused in (("cpu_kernel_step", True), ("cpu_plain_step", False)):
+        ok, info = parity.train_step_agreement(card, parity.train_step(*args, *host, fused))
+        out[name] = dict(ok=ok, **info)
+    out["loss"] = card[0]
+    return out
+
+
+def phase_train_culled(device, reference: dict):
+    """The culled stage-1 train schedule through the port's CLI (T-culled):
+    the shipped config plus --train_cull_q 2e-3 --train_fine_total 32 from a
+    seeded init on phase_train's synthetic scene, epochs 0..CULL_EPOCHS;
+    every epoch's loss finite, the loss falling, every step's fine sweep
+    (fine_raw_t and raw_bwd_t) at S=32 and its static sweep at S=64. Then
+    the warmup leg (--train_cull_warmup CULL_WARMUP, epochs 0-3): the fine
+    sweep at S=128 before the warmup epoch and at 32 from it; the culled
+    step on the card against the CPU's at the trained params
+    (culled_agreement: against the CPU's kernel step, whose wrappers run
+    their plain versions, and the CPU's plain render_rays step at bf16
+    operands, each under the fused-train bars); fine_raw_t and raw_bwd_t
+    at N=1536, W=128, the fine pack, S=32 and S=12 against their plain
+    versions; and W=256 culled and reference legs of CULL_WIDE_EPOCHS.
+    Figures: steps/s of both schedules at both widths (the reference at
+    W=128 from phase_train, this call), the culled step's breakdown by CUDA
+    events, both schedules' step under torch.profiler (idle share,
+    host-to-device copies a step), launches per epoch, val PSNR."""
+    import torch
+
+    from dfnet_tpu_torch.training.checkpoints import params_to_numpy
+    from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+
+    out, cases = {}, []
+    run = train_run(device, CULL_FLAGS, CULL_EPOCHS)
+    tr = run.pop("trainer")
+    loss = run["loss"]
+    log(f"[train_culled] {len(run['epochs'])} epochs, {run['steps_per_s']:.2f} steps/s over "
+        f"epochs 1-{CULL_EPOCHS} (reference schedule {reference['steps_per_s']:.2f}, "
+        f"phase_train); loss {loss[0]:.5f} -> {loss[-1]:.5f}; val PSNR "
+        f"{run['val_psnr']:.4f} dB; launches {run['launches']}; per epoch "
+        f"{run['epochs'][-1]['launches']}")
+    if not tr.uses_fused_train or tr.settings.train_fine_total != 32:
+        raise SystemExit("the culled config did not take the kernel train step at nf 32")
+    for e in run["epochs"]:
+        want = {(n, "static", 64) for n in ("fine_raw_t", "raw_bwd_t")} | {
+            (n, "fine", 32) for n in ("fine_raw_t", "raw_bwd_t")}
+        if set(e["widths"]) != want or len(e["widths"]) != 4 * e["steps"] or any(
+                e["launches"][k] != 2 * e["steps"] for k in ("fine_raw_t", "raw_bwd_t")):
+            raise SystemExit(f"epoch {e['epoch']}: sweeps {sorted(set(e['widths']))}, "
+                             f"launches {e['launches']} in {e['steps']} steps")
+    if not np.all(np.isfinite(loss)) or not np.mean(loss[-3:]) < np.mean(loss[:3]):
+        raise SystemExit(f"the culled run's loss is not finite and falling: {loss}")
+    out.update(steps_per_s=run["steps_per_s"], reference_steps_per_s=reference["steps_per_s"],
+               val_psnr=run["val_psnr"], loss_first=loss[0], loss_last=loss[-1],
+               launches=run["launches"], launches_per_epoch=run["epochs"][-1]["launches"],
+               breakdown=step_breakdown(tr, tag="train_culled"))
+    # both schedules' steps under the profiler, at the same params
+    ref = NeRFTrainer(tr.cfg.replace(train_cull_q=0.0, train_fine_total=0), tr.scene,
+                      device=device)
+    ref.load_params_tree(params_to_numpy(tr.params))
+    out["profile"] = {"culled": train_step_profile(tr), "reference": train_step_profile(ref)}
+    log(f"[train_culled] step profile: {json.dumps(out['profile'])}")
+    del ref
+
+    # the warmup leg: the reference schedule's fine sweep before the warmup epoch
+    warm = train_run(device, CULL_FLAGS + ["--train_cull_warmup", str(CULL_WARMUP)],
+                     CULL_WARMUP + 1)
+    fine_s = {e["epoch"]: sorted({s for n, p, s in e["widths"] if p == "fine"})
+              for e in warm["epochs"]}
+    log(f"[train_culled] warmup {CULL_WARMUP}: fine sweep S by epoch {fine_s}; loss "
+        f"{warm['loss']}")
+    if fine_s != {e: [128 if e < CULL_WARMUP else 32] for e in range(CULL_WARMUP + 2)} or \
+            not np.all(np.isfinite(warm["loss"])):
+        raise SystemExit(f"the warmup leg did not switch from S=128 to 32 at epoch "
+                         f"{CULL_WARMUP}: {fine_s}, loss {warm['loss']}")
+    out["warmup_fine_s"] = fine_s
+    del warm
+
+    # the culled step, card against CPU
+    agree = culled_agreement(tr)
+    log(f"[train_culled] card against CPU (ratios to the bars): {json.dumps(agree)}")
+    if not (agree["cpu_kernel_step"]["ok"] and agree["cpu_plain_step"]["ok"]):
+        raise SystemExit(f"the culled step on the card disagrees with the CPU's: {agree}")
+    out["card_vs_cpu"] = agree
+
+    # fine_raw_t and raw_bwd_t at the culled widths, against their plain versions
+    asset = "the culled run's params"
+    for S in CULL_KERNEL_S:
+        t = tr if S == tr.settings.train_fine_total else NeRFTrainer(
+            tr.cfg.replace(train_fine_total=S), tr.scene, device=device)
+        if t is not tr:
+            t.load_params_tree(params_to_numpy(tr.params))
+        for (name, sweep), (a, kw) in capture_train_step(t).items():
+            if sweep == "fine":
+                if a[3].shape[1] != S:
+                    raise SystemExit(f"{name} ran at S={a[3].shape[1]}, not {S}")
+                cases.append(measure(name, a, kw, asset, f"train-culled-{S}"))
+        del t
+        torch.cuda.empty_cache()
+    out["cases"] = cases
+    del tr
+    torch.cuda.empty_cache()
+
+    # W=256: both schedules, CULL_WIDE_EPOCHS each
+    wide = ["--netwidth", "256", "--netwidth_fine", "256"]
+    for name, flags in (("culled_w256", wide + CULL_FLAGS), ("reference_w256", wide)):
+        r = train_run(device, flags, CULL_WIDE_EPOCHS)
+        if not r["trainer"].uses_fused_train or not np.all(np.isfinite(r["loss"])):
+            raise SystemExit(f"{name}: not the kernel step, or a non-finite loss {r['loss']}")
+        out[f"{name}_steps_per_s"] = r["steps_per_s"]
+        del r
+        torch.cuda.empty_cache()
+    log(f"[train_culled] W=256 steps/s: culled {out['culled_w256_steps_per_s']:.2f}, "
+        f"reference {out['reference_w256_steps_per_s']:.2f} (epochs 1-{CULL_WIDE_EPOCHS})")
     return out
 
 
@@ -3099,6 +3318,8 @@ def main() -> int:
     probe = timed(phase_probe, device)
     cases += probe["cases"]
     train_result = timed(phase_train, device)
+    culled = timed(phase_train_culled, device, train_result)
+    cases += culled.pop("cases")
     with tempfile.TemporaryDirectory() as handoff:
         feature = timed(phase_feature, device, handoff)
         dm = timed(phase_dm, device, feature["best_ckpt"])
@@ -3132,6 +3353,7 @@ def main() -> int:
                                           for k in REPLACES},
                      "probe": {**empty, **probe["launches"]},
                      "train": train_result["launches"],
+                     "train_culled": culled["launches"],
                      "feature": feature["launches"],
                      "dm": dm["launches"],
                      "sevenscenes": seven["launches"],
@@ -3159,6 +3381,7 @@ def main() -> int:
                                   for d in ("bf16", "int8")} | {"ratio": o["run"]["ratio"]}
                               for W, o in probe["widths"].items()}}))
     log(json.dumps({"train": train_result}))
+    log(json.dumps({"train_culled": culled}))
     log(json.dumps({"feature": {k: v for k, v in feature.items() if k != "cases"}}))
     log(json.dumps({"dm": dm}))
     log(json.dumps({"sevenscenes": seven}))

@@ -132,8 +132,11 @@ def sample_pdf_culled(bins, weights, n_total: int, lam: float, q: float,
     cdf = torch.cumsum(pdf, -1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # (N, M)
 
-    uq = torch.tensor([q, 1.0 - q], dtype=torch.float32, device=bins.device)
-    uq = uq.expand(cdf.shape[:-1] + (2,))
+    # filled on the device: a tensor made from a host list would copy from
+    # pageable memory, which makes the host wait for the device every step
+    uq = torch.empty(cdf.shape[:-1] + (2,), dtype=torch.float32, device=bins.device)
+    uq[..., 0] = q
+    uq[..., 1] = 1.0 - q
     zq = invert_cdf(cdf, bins, uq, cdf[..., :1], bins[..., :1])  # (N, 2)
 
     pad = (bins[..., -1:] - bins[..., :1]) / (bins.shape[-1] - 1)

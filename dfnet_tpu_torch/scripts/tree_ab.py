@@ -3,6 +3,7 @@ tree's on one card in one run.
 
     python -m dfnet_tpu_torch.scripts.tree_ab kernels --parent TREE [--reps 7]
     python -m dfnet_tpu_torch.scripts.tree_ab step --parent TREE
+    python -m dfnet_tpu_torch.scripts.tree_ab culled --parent TREE
 
 TREE is the root of another checkout of the repo (for example `git archive`
 of the parent commit unpacked into a gitignored directory such as proof/).
@@ -27,6 +28,10 @@ step: runs chip_smoke.py's phase_train (20 epochs of the shipped config
 through the CLI, then step_breakdown) from each tree's root in its own
 process, in turns parent, this, this, parent, and prints one JSON line of
 each run's steps/s, step breakdown and val PSNR.
+
+culled: the same turns of each tree's stage-1 CLI at the shipped config
+under the culled train schedule (--train_cull_q 2e-3 --train_fine_total
+32), epochs 0-10: steps/s over epochs 1-10 and the val PSNR.
 
 Both print the card's name and power limit first. Need a CUDA device and nvcc.
 """
@@ -274,16 +279,42 @@ print({RESULT!r} + json.dumps({{k: r[k] for k in ("steps_per_s", "val_psnr", "br
 """
 
 
-def run_step(parent: Path) -> int:
+# the stage-1 CLI at the shipped config plus argv for epochs 0-10: steps/s
+# over epochs 1-10 (host clock around each epoch, which ends in a fetch of
+# its loss) and the val PSNR
+_CLI = f"""
+import json, sys, tempfile, time
+from dfnet_tpu_torch.cli.nerf import train
+from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+secs, orig = [], NeRFTrainer.train_epoch
+def timed(self, epoch):
+    t0 = time.perf_counter()
+    out = orig(self, epoch)
+    secs.append((len(self.scene.train), time.perf_counter() - t0))
+    return out
+NeRFTrainer.train_epoch = timed
+with tempfile.TemporaryDirectory() as base:
+    psnr = train(["--dataset_type", "synthetic", "--NeRFH", "--encode_hist", "--basedir",
+                  base, "--expname", "nerfh", "--epochs", "10", "--i_weights", "10",
+                  "--i_testset", "10", *sys.argv[1:]])
+steady = secs[1:]
+print({RESULT!r} + json.dumps({{"steps_per_s": sum(n for n, _ in steady)
+                                / sum(t for _, t in steady), "val_psnr": psnr}}), flush=True)
+"""
+CULLED_FLAGS = ["--train_cull_q", "2e-3", "--train_fine_total", "32"]
+
+
+def run_step(parent: Path, what: str) -> int:
     runs = []
+    cmd = {"step": ["-c", _STEP], "culled": ["-c", _CLI, *CULLED_FLAGS]}[what]
     for name, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
                        ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", _STEP], cwd=root, capture_output=True,
+        proc = subprocess.run([sys.executable, *cmd], cwd=root, capture_output=True,
                               text=True)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(RESULT)]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
-            raise RuntimeError(f"phase_train of {root} failed (exit {proc.returncode})")
+            raise RuntimeError(f"{what} of {root} failed (exit {proc.returncode})")
         runs.append(dict(tree=name, **json.loads(lines[-1][len(RESULT):])))
         print(json.dumps(runs[-1]), flush=True)
     return 0
@@ -291,7 +322,7 @@ def run_step(parent: Path) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("kernels", "step"))
+    ap.add_argument("what", choices=("kernels", "step", "culled"))
     ap.add_argument("--parent", type=Path, required=True, help="another tree's root")
     ap.add_argument("--reps", type=int, default=7)
     args = ap.parse_args(argv)
@@ -300,7 +331,8 @@ def main(argv=None) -> int:
         return 1
     print(f"[card] {card()}", flush=True)
     parent = args.parent.resolve()
-    return run_kernels(parent, args.reps) if args.what == "kernels" else run_step(parent)
+    return (run_kernels(parent, args.reps) if args.what == "kernels"
+            else run_step(parent, args.what))
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@ random pixels, render them through coarse + fine (the kernel path
 render/fused_train.py, or the plain render/volume.py), NeRF-W loss plus
 the proposal sampler's bound loss, backward, and an Adam update at
 lr = lrate * 0.1^(global_step / (lrate_decay * 1000)), where global_step
-advances once per epoch (the reference's schedule). Splits render at test
+advances once per epoch (the reference's schedule). Under the culled
+schedule (--train_cull_q) with --train_cull_warmup E, epochs below E train
+at the reference schedule's sampling first (`NeRFTrainer.schedule`), each
+schedule on the kernel step where it can serve. Splits render at test
 settings through render/fast.py or the plain renderer. Checkpoints hold
 the params and the Adam state in the JAX package's layout.
 
@@ -28,6 +31,7 @@ checkpoints and images.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import os.path as osp
 from typing import Callable, Dict, List, Optional, Tuple, Union
@@ -165,11 +169,32 @@ class NeRFTrainer:
         self._images = torch.as_tensor(tr.images, dtype=torch.float32, device=self.device)
         self._poses = torch.as_tensor(tr.poses, dtype=torch.float32, device=self.device)
         self._hists = torch.as_tensor(tr.hists, device=self.device)
-        # which step serves this config: the kernels, or the plain render
-        self.uses_fused_train = bool(
-            cfg.fused_train and cfg.reduce_embedding != 2
-            and fused_train_supported(self.model, self.settings, cfg.N_rand))
+        # the culled schedule's warmup (JAX's _epoch_warm): epochs below
+        # train_cull_warmup train at the reference schedule's settings
+        self.settings_warm = None
+        if cfg.train_cull_q > 0.0 and cfg.train_cull_warmup > 0:
+            self.settings_warm = dataclasses.replace(self.settings, train_cull_q=0.0,
+                                                     train_fine_total=0)
+        # which step serves each schedule: the kernels, or the plain render
+        self.uses_fused_train = self._fused_for(self.settings)
+        self.uses_fused_train_warm = (self._fused_for(self.settings_warm)
+                                      if self.settings_warm is not None else None)
         self._build_render()
+
+    def _fused_for(self, settings: RenderSettings) -> bool:
+        cfg = self.cfg
+        return bool(cfg.fused_train and cfg.reduce_embedding != 2
+                    and fused_train_supported(self.model, settings, cfg.N_rand))
+
+    def schedule(self, epoch: float) -> Tuple[RenderSettings, bool]:
+        """(train settings, kernel step?) in force at this epoch: the
+        reference schedule (no culling) before train_cull_warmup when the
+        culled schedule has a warmup, else the configured one. The rule
+        reads the epoch only, so a resumed run and every rank of a mesh
+        switch at the same epoch."""
+        if self.settings_warm is not None and epoch < self.cfg.train_cull_warmup:
+            return self.settings_warm, self.uses_fused_train_warm
+        return self.settings, self.uses_fused_train
 
     def _set_params(self, params: Dict) -> None:
         """Adopt a params tree as trainable leaves with a fresh Adam."""
@@ -206,8 +231,9 @@ class NeRFTrainer:
 
     def loss_and_grads(self, rays_o, rays_d, target, hist, epoch: float,
                        where: str = "a stage-1 step"):
-        """(loss, fine-rgb MSE) of a ray batch with one histogram, both
-        detached, and the batch's grads in the leaves' .grad; under
+        """(loss, fine-rgb MSE) of a ray batch with one histogram at the
+        schedule in force at `epoch` (`schedule`), both detached, and the
+        batch's grads in the leaves' .grad; under
         check_numerics a non-finite loss raises FloatingPointError naming
         `where` before the backward (on a mesh, this rank's). On a mesh,
         the loss and grads of the whole batch on every rank: this rank
@@ -220,9 +246,9 @@ class NeRFTrainer:
             rays_o, rays_d, target = rays_o[lo:hi], rays_d[lo:hi], target[lo:hi]
             gen = RowShard(self.gen, lo, hi, n)
         hist_b = hist[None].expand((rays_o.shape[0],) + hist.shape)
-        loss, mse = stage1_loss(self.params, self.model, self.cfg, self.settings,
-                                rays_o, rays_d, target, hist_b, gen,
-                                self.uses_fused_train, epoch)
+        settings, fused = self.schedule(epoch)
+        loss, mse = stage1_loss(self.params, self.model, self.cfg, settings,
+                                rays_o, rays_d, target, hist_b, gen, fused, epoch)
         if self.cfg.check_numerics:
             check_finite_loss(loss, where)
         self.optimizer.zero_grad(set_to_none=True)
@@ -245,8 +271,12 @@ class NeRFTrainer:
         self.optimizer.step()
 
     def train_epoch(self, epoch: int) -> Tuple[float, float]:
-        """One pass over the shuffled train images at this epoch; returns
-        the last step's (loss, psnr), as the reference does."""
+        """One pass over the shuffled train images at this epoch (at the
+        schedule in force then, `schedule`); returns the last step's
+        (loss, psnr), as the reference does."""
+        if (self.settings_warm is not None and epoch == self.cfg.train_cull_warmup
+                and is_main()):
+            print("[nerf] warmup done, switching to culled train schedule", flush=True)
         lr = exp_decayed_lr(self.cfg, self.global_step)
         loss = psnr = torch.zeros(())
         for idx in epoch_permutation(len(self.scene.train), self.order_rng):

@@ -35,6 +35,14 @@ chip_smoke.py and the tests.
     differ from the CPU's by float32 rounding, dL/dpose is held within
     DM_DPOSE_OWN_POSE of its scale, a bar set from the float64 gradient's
     largest move at such pose steps (scripts/dm_diag.py).
+  - the stage-1 train step (culled or not), the kernel step against the
+    plain step at bf16 matmul operands (bf16_model), or card against CPU
+    (train_step_agreement), under the JAX package's fused-train bars (tests/test_fused_train.py,
+    tests/test_culled_render.py:239-275): fine z within 2e-3, rgb0 / rgb /
+    beta / acc within 5e-3, the loss within rtol 1e-3, every non-proposal
+    gradient leaf within 3e-2 of its largest magnitude plus 3e-7 (the
+    kernel sums bf16 products in another order, and at a fresh init the
+    coarse grads are of bf16 rounding's size).
   - bf16 against float32 (the JAX package's tests/test_feature_bf16.py):
     pose within 5% of max(|pose|, 1); BN-normalised feature maps within
     0.08 mean absolute difference; the pose loss's gradient cosine above
@@ -46,6 +54,7 @@ chip_smoke.py and the tests.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 from typing import Dict, Tuple
 
@@ -85,6 +94,13 @@ DM_FLAGS = ["--NeRFH", "--encode_hist", "--dataset_type", "synthetic", "--netdep
             "--N_samples", "10", "--N_importance", "10", "--N_rand", "128",
             "--expname", "nerfh", "--model_name", "dfnetdm", "--DFNet", "--svd_reg",
             "--feature_precision", "fp32"]
+
+TRAIN_Z_TOL = TOL_Z
+TRAIN_OUT_TOL = 5e-3
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_TOL = 3e-2
+TRAIN_GRAD_FLOOR = 3e-7
+TRAIN_OUT_KEYS = ("rgb0", "rgb", "beta", "acc")
 
 BF16_POSE = 0.05
 BF16_FEATURE = 0.08
@@ -418,3 +434,71 @@ def zoo_agreement(name: str, x: torch.Tensor, device, seed: int = 0) -> Tuple[bo
         scale = max(float(w.abs().max()), 1e-30)
         ratio = max(ratio, float((g.cpu() - w).abs().max()) / (ZOO_BARS[name] * scale))
     return len(got) == len(want) and ratio <= 1.0, ratio
+
+
+def _trainable_copy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _trainable_copy(v, device) for k, v in tree.items()}
+    return tree.detach().to(device).clone().requires_grad_(True)
+
+
+def bf16_model(model):
+    """A NeRF-H model description whose plain render takes bf16 matmul
+    operands (its nets' compute_dtype), the kernel step's precision: the
+    JAX package holds its fused train step to its plain step at
+    --precision bf16 (tests/test_culled_render.py::_train_setup)."""
+    bf = lambda c: None if c is None else dataclasses.replace(c, compute_dtype=torch.bfloat16)
+    return dataclasses.replace(model, cfg_coarse=bf(model.cfg_coarse),
+                               cfg_fine=bf(model.cfg_fine),
+                               cfg_proposal=bf(model.cfg_proposal))
+
+
+def train_step(params: Dict, model, cfg, settings, rays_o: torch.Tensor,
+               rays_d: torch.Tensor, target: torch.Tensor, hist: torch.Tensor,
+               fused: bool) -> Tuple[float, Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(loss, render outputs, grads by leaf path) of one stage-1 step on the
+    inputs' device: the kernel step (`fused`) or the plain one, at
+    deterministic settings (perturb 0, no sigma noise), from a copy of
+    `params` (a tree of detached tensors) on that device."""
+    from dfnet_tpu_torch.render.fused_train import render_rays_train_fused
+    from dfnet_tpu_torch.render.volume import render_rays
+    from dfnet_tpu_torch.training.nerf_trainer import stage1_loss
+
+    if settings.perturb != 0.0 or settings.raw_noise_std != 0.0:
+        raise ValueError("the train-step agreement needs perturb 0 and no noise")
+    p = _trainable_copy(params, rays_o.device)
+    render = render_rays_train_fused if fused else render_rays
+    with torch.no_grad():
+        out = render(p, model, rays_o, rays_d, hist, settings, None)
+    loss, _ = stage1_loss(p, model, cfg, settings, rays_o, rays_d, target, hist, None,
+                          fused)
+    loss.backward()
+    grads = {k: (t.grad if t.grad is not None else torch.zeros_like(t)).float().cpu().numpy()
+             for k, t in named_leaves(p)}
+    return (float(loss.detach()), {k: v.float().cpu().numpy() for k, v in out.items()},
+            grads)
+
+
+def train_step_agreement(got: Tuple, want: Tuple) -> Tuple[bool, Dict]:
+    """(ok, each bar's worst ratio, < 1 passes) of two train_step results
+    under the fused-train bars: z_all, the outputs, the loss and every
+    non-proposal leaf's gradient."""
+    (gl, go, gg), (wl, wo, wg) = got, want
+    info = {"z_all": float(np.abs(go["z_all"] - wo["z_all"]).max()) / TRAIN_Z_TOL,
+            "outputs": max(float(np.abs(go[k] - wo[k]).max())
+                           for k in TRAIN_OUT_KEYS) / TRAIN_OUT_TOL,
+            "loss": abs(gl - wl) / (TRAIN_LOSS_RTOL * abs(wl))}
+    worst, leaf = 0.0, ""
+    for k, w in wg.items():
+        if k.startswith("proposal/"):
+            continue
+        g, w = np.asarray(gg[k], np.float64), np.asarray(w, np.float64)
+        scale = max(np.abs(g).max(), np.abs(w).max())
+        r = float(np.abs(g - w).max()) / (TRAIN_GRAD_TOL * scale + TRAIN_GRAD_FLOOR)
+        if r >= worst:
+            worst, leaf = r, k
+    info.update(grads=worst, worst_leaf=leaf, n_fine=int(go["z_all"].shape[-1]))
+    ok = (sorted(gg) == sorted(wg) and go["z_all"].shape == wo["z_all"].shape
+          and all(info[k] < 1 for k in ("z_all", "outputs", "loss", "grads"))
+          and all(np.isfinite(v).all() for v in gg.values()))
+    return ok, info

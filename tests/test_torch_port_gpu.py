@@ -1017,6 +1017,52 @@ def test_stage1_step_world2_on_one_card_matches_world1(cuda):
         assert counts["fine_raw_t"] == 2 and counts["raw_bwd_t"] == 2, w2["launches"]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("nf", [32, 12])
+def test_culled_kernel_step_on_the_card_matches_the_plain_step(cuda, nf):
+    """The culled stage-1 step (--train_cull_q 2e-3 --train_fine_total nf,
+    the shipped D=8 W=128 nets, 64 placement samples, perturb 0, no sigma
+    noise) after three culled epochs from the seeded init, on 301 rays of
+    a train view: the card's kernel step against the same step on the CPU,
+    whose wrappers run their plain versions, and against the card's plain
+    render_rays step at bf16 matmul operands (parity.bf16_model), each
+    under the fused-train bars of training/parity.py (fine z 2e-3, rgb0 /
+    rgb / beta / acc 5e-3, loss rtol 1e-3, every non-proposal gradient
+    3e-2 of its scale + 3e-7)."""
+    import dataclasses
+
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.training import parity
+    from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+
+    cfg = parse_args(["--NeRFH", "--encode_hist", "--dataset_type", "synthetic",
+                      "--train_cull_q", "2e-3", "--train_fine_total", str(nf),
+                      "--N_rand", "512", "--lrate", "5e-3", "--device", "cuda"],
+                     stage="nerf")
+    tr = NeRFTrainer(cfg, make_synthetic_scene(n_train=4, n_val=1, H=24, W=32, focal=30.0,
+                                               seed=0))
+    assert tr.uses_fused_train
+    for epoch in range(3):
+        tr.train_epoch(epoch)
+    st = dataclasses.replace(tr.settings, perturb=0.0, raw_noise_std=0.0)
+    ro, rd, target, hist = tr.draw_batch(1)
+    ro, rd, target = ro[:301], rd[:301], target[:301]
+    hist = hist[None].expand(301, -1)
+    args = (tr.params, parity.bf16_model(tr.model), cfg, st)
+    nk.reset_launches()
+    card = parity.train_step(*args, ro, rd, target, hist, True)
+    # both sweeps of the outputs' no-grad render and of the step
+    assert nk.LAUNCHES["fine_raw_t"] == 4 and nk.LAUNCHES["raw_bwd_t"] == 2
+    assert card[1]["z_all"].shape == (301, nf)
+    host = [t.cpu() for t in (ro, rd, target, hist)]
+    ok, info = parity.train_step_agreement(card, parity.train_step(*args, *host, True))
+    assert ok, info
+    ok, info = parity.train_step_agreement(card, parity.train_step(*args, ro, rd, target,
+                                                                   hist, False))
+    assert ok, info
+
+
 def _homographies(n: int, seed: int) -> np.ndarray:
     from dfnet_tpu_torch.utils import homography as hom
 
