@@ -1,0 +1,15 @@
+"""The device's idle time a step of the stage-3 cell, in ms, under
+loss.backward() (benchmark/spans.py)."""
+
+from benchmark import spans
+
+NAME = "idle_ms.backward.dm"
+UNIT = "ms"
+LAYER = "training/dm_trainer.py DMTrainer.train_step"
+SOURCE = "program_span"
+MOVES = "dm_images_per_s"
+WORKLOADS = ["nerfh_w128.dm"]
+
+
+def read(run):
+    return spans.idle_ms(run, "dm", "backward")

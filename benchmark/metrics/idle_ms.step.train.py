@@ -1,0 +1,17 @@
+"""The device's idle time a step of the stage-1 train cell, in ms, under the
+step's own time (dfnet.train.step less its phases): the stratified draw and
+the direction embedding, nerfw_loss, img2mse and the PSNR
+(benchmark/spans.py)."""
+
+from benchmark import spans
+
+NAME = "idle_ms.step.train"
+UNIT = "ms"
+LAYER = "training/nerf_trainer.py NeRFTrainer.train_step"
+SOURCE = "program_span"
+MOVES = "train_rays_per_s"
+WORKLOADS = ["nerfh_w256.train"]
+
+
+def read(run):
+    return spans.idle_ms(run, "train", "step")

@@ -22,6 +22,10 @@ Importance-sampling modes (as in the JAX package):
     ops between them. It needs a packed proposal, exact_union=False and
     lindisp=False; otherwise the call takes the two-kernel path, as in the
     JAX package.
+
+Under a torch.profiler trace (utils/profiling.py::annotate) a view is the
+region `dfnet.render.view`, holding `dfnet.render.pack` and, per chunk,
+`dfnet.render.placement`, `.sample`, `.fine` and `.composite`.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from dfnet_tpu_torch.render.volume import (
     chunked_rays,
     gather_image,
 )
+from dfnet_tpu_torch.utils.profiling import annotate
 
 LANES = 128     # the JAX package's lane width; kept for its support gates
 
@@ -249,58 +254,67 @@ def render_rays_fast(fast: FastNeRFH, rays_o, rays_d, hist,
                and not settings.lindisp)
     if mono and mono_ok:
         n_total = S + settings.N_importance
-        dpt = _per_ray_conditioning(fast, rays_d, hist)
-        z_all = nk.proposal_z_rows(fast.packed_proposal, rays_o, rays_d,
-                                   fast.spec_proposal, S, n_total,
-                                   float(settings.near), float(settings.far),
-                                   lam=S / n_total)
-        out = nk.fine_composite_t(fast.packed_fine, rays_o, rays_d, z_all, dpt,
-                                  fast.spec_fine)
-        return _composited(out, settings.white_bkgd)
+        with annotate("dfnet.render.placement"):
+            z_all = nk.proposal_z_rows(fast.packed_proposal, rays_o, rays_d,
+                                       fast.spec_proposal, S, n_total,
+                                       float(settings.near), float(settings.far),
+                                       lam=S / n_total)
+        with annotate("dfnet.render.fine"):
+            dpt = _per_ray_conditioning(fast, rays_d, hist)
+            out = nk.fine_composite_t(fast.packed_fine, rays_o, rays_d, z_all, dpt,
+                                      fast.spec_fine)
+        with annotate("dfnet.render.composite"):
+            return _composited(out, settings.white_bkgd)
     n = rays_o.shape[0]
 
     # sample placement: the trained proposal sampler when packed (same
     # uniform grid, much cheaper sigma sweep), else the coarse NeRF
-    if fast.packed_proposal is not None:
-        sig_pre = nk.coarse_sigma_t(fast.packed_proposal, rays_o, rays_d,
-                                    fast.spec_proposal, S, float(settings.near),
-                                    float(settings.far), settings.lindisp)
-    else:
-        sig_pre = nk.coarse_sigma_t(fast.packed_coarse, rays_o, rays_d,
-                                    fast.spec_coarse, S, float(settings.near),
-                                    float(settings.far), settings.lindisp)
-    sigma = Fn.softplus(sig_pre)
-    near = torch.full((n, 1), settings.near, device=rays_o.device)
-    far = torch.full((n, 1), settings.far, device=rays_o.device)
-    z_vals = stratified_z_vals(near, far, S, None, settings.lindisp, 0.0)
-    deltas = z_vals[:, 1:] - z_vals[:, :-1]
-    deltas = torch.cat([deltas, 1e2 * torch.ones_like(deltas[:, :1])], -1)
-    alphas = 1.0 - torch.exp(-deltas * sigma)
-    weights = alphas * _shifted_cumprod_lanes(alphas)
+    with annotate("dfnet.render.placement"):
+        if fast.packed_proposal is not None:
+            sig_pre = nk.coarse_sigma_t(fast.packed_proposal, rays_o, rays_d,
+                                        fast.spec_proposal, S, float(settings.near),
+                                        float(settings.far), settings.lindisp)
+        else:
+            sig_pre = nk.coarse_sigma_t(fast.packed_coarse, rays_o, rays_d,
+                                        fast.spec_coarse, S, float(settings.near),
+                                        float(settings.far), settings.lindisp)
+        sigma = Fn.softplus(sig_pre)
+        near = torch.full((n, 1), settings.near, device=rays_o.device)
+        far = torch.full((n, 1), settings.far, device=rays_o.device)
+        z_vals = stratified_z_vals(near, far, S, None, settings.lindisp, 0.0)
+        deltas = z_vals[:, 1:] - z_vals[:, :-1]
+        deltas = torch.cat([deltas, 1e2 * torch.ones_like(deltas[:, :1])], -1)
+        alphas = 1.0 - torch.exp(-deltas * sigma)
+        weights = alphas * _shifted_cumprod_lanes(alphas)
 
-    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    n_total = n_fine or (settings.N_samples + settings.N_importance)
-    if cull_q > 0.0:
-        lam = settings.N_samples / (settings.N_samples + settings.N_importance)
-        z_all = sample_pdf_culled(z_mid, weights[..., 1:-1], n_total,
-                                  lam=lam, q=cull_q)
-    elif exact_union:
-        z_samples = sample_pdf(z_mid, weights[..., 1:-1],
-                               settings.N_importance, None, det=True)
-        z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
-    else:
-        z_all = sample_pdf_blend(z_mid, weights[..., 1:-1], n_total,
-                                 lam=S / n_total)
-    z_all = z_all.contiguous()
-    dpt = _per_ray_conditioning(fast, rays_d, hist)
+    with annotate("dfnet.render.sample"):
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        n_total = n_fine or (settings.N_samples + settings.N_importance)
+        if cull_q > 0.0:
+            lam = settings.N_samples / (settings.N_samples + settings.N_importance)
+            z_all = sample_pdf_culled(z_mid, weights[..., 1:-1], n_total,
+                                      lam=lam, q=cull_q)
+        elif exact_union:
+            z_samples = sample_pdf(z_mid, weights[..., 1:-1],
+                                   settings.N_importance, None, det=True)
+            z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
+        else:
+            z_all = sample_pdf_blend(z_mid, weights[..., 1:-1], n_total,
+                                     lam=S / n_total)
+        z_all = z_all.contiguous()
 
-    if fuse_composite:
-        out = nk.fine_composite_t(fast.packed_fine, rays_o, rays_d, z_all,
-                                  dpt, fast.spec_fine)
-        return _composited(out, settings.white_bkgd)
-    raw9 = nk.fine_raw_t(fast.packed_fine, rays_o, rays_d, z_all, dpt,
-                         fast.spec_fine)
-    return composite_soa(raw9, z_all, white_bkgd=settings.white_bkgd)
+    with annotate("dfnet.render.fine"):
+        dpt = _per_ray_conditioning(fast, rays_d, hist)
+        if fuse_composite:
+            out = nk.fine_composite_t(fast.packed_fine, rays_o, rays_d, z_all,
+                                      dpt, fast.spec_fine)
+        else:
+            raw9 = nk.fine_raw_t(fast.packed_fine, rays_o, rays_d, z_all, dpt,
+                                 fast.spec_fine)
+    with annotate("dfnet.render.composite"):
+        if fuse_composite:
+            return _composited(out, settings.white_bkgd)
+        return composite_soa(raw9, z_all, white_bkgd=settings.white_bkgd)
 
 
 def cull_schedule_kwargs(cfg) -> Dict:
@@ -367,15 +381,17 @@ def render_image_fast(params: Dict, model: NeRFHModel, c2w, hist,
     (parallel/mesh.py) each rank renders its slice of the ray axis, with
     the kernels the one-device render launches on all of them, and the
     slices are gathered."""
-    if fast is None:
-        fast = FastNeRFH.pack(params, model, use_proposal=use_proposal)
-    align = kernel_ray_align(model, settings, n_fine, n_place)
-    chunk = max(chunk // align, 1) * align
-    n, ro, rd = chunked_rays(H, W, focal, c2w, chunk, mesh)
-    hist_b = hist[None]            # (1, HB): one histogram for every ray
-    outs = [render_rays_fast(fast, o, d, hist_b, settings,
-                             exact_union=exact_union, cull_q=cull_q,
-                             n_fine=n_fine, n_place=n_place,
-                             fuse_composite=fuse_composite)
-            for o, d in zip(ro, rd)]
-    return gather_image(outs, n, H, W, mesh)
+    with annotate("dfnet.render.view"):
+        if fast is None:
+            with annotate("dfnet.render.pack"):
+                fast = FastNeRFH.pack(params, model, use_proposal=use_proposal)
+        align = kernel_ray_align(model, settings, n_fine, n_place)
+        chunk = max(chunk // align, 1) * align
+        n, ro, rd = chunked_rays(H, W, focal, c2w, chunk, mesh)
+        hist_b = hist[None]            # (1, HB): one histogram for every ray
+        outs = [render_rays_fast(fast, o, d, hist_b, settings,
+                                 exact_union=exact_union, cull_q=cull_q,
+                                 n_fine=n_fine, n_place=n_place,
+                                 fuse_composite=fuse_composite)
+                for o, d in zip(ro, rd)]
+        return gather_image(outs, n, H, W, mesh)

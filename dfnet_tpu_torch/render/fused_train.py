@@ -15,6 +15,11 @@ and transient-0 layers) ONLY. Rays and z samples get none, which is exact
 for stage 1: the fine z's are drawn without gradient and the rays are
 data. Stage 3 (gradients to the pose through the rays) must keep the
 plain `render/volume.py::render_rays`.
+
+Under a torch.profiler trace (utils/profiling.py::annotate) the render's
+phases are the regions `dfnet.train.pack` (each pack), `.coarse`,
+`.composite` (each composite), `.sample` and `.fine`, inside the step's
+`dfnet.train.step` (training/nerf_trainer.py).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from dfnet_tpu_torch.render.fast import (
 )
 from dfnet_tpu_torch.render.sampling import gaussian, sample_pdf, stratified_z_vals
 from dfnet_tpu_torch.render.volume import NeRFHModel, RenderSettings
+from dfnet_tpu_torch.utils.profiling import annotate
 
 
 class RawSweep(torch.autograd.Function):
@@ -188,46 +194,53 @@ def render_rays_train_fused(params: Dict, model: NeRFHModel, rays_o, rays_d,
     dir_emb = model.embed_dir(viewdirs)
 
     # ---- coarse sweep (the full static pass at train time)
-    packed_c = nk.pack_static_t(params["coarse"], cfgc, model.embed_xyz)
-    spec_c = nk.spec_of(cfgc, model.embed_xyz, fine=False, static=True)
-    dpt_c = nk.per_ray_row_static(params["coarse"], cfgc, dir_emb)
-    raw_c = raw_sweep(packed_c, rays_o, rays_d, z_vals, dpt_c, spec_c)
-    noise = None
-    if settings.raw_noise_std > 0.0 and gen is not None:
-        noise = settings.raw_noise_std * gaussian((n, S), gen, rays_o.device)
-    comp_c = composite_static_train(raw_c, z_vals, white_bkgd=settings.white_bkgd,
-                                    raw_noise=noise)
+    with annotate("dfnet.train.pack"):
+        packed_c = nk.pack_static_t(params["coarse"], cfgc, model.embed_xyz)
+        spec_c = nk.spec_of(cfgc, model.embed_xyz, fine=False, static=True)
+    with annotate("dfnet.train.coarse"):
+        dpt_c = nk.per_ray_row_static(params["coarse"], cfgc, dir_emb)
+        raw_c = raw_sweep(packed_c, rays_o, rays_d, z_vals, dpt_c, spec_c)
+        noise = None
+        if settings.raw_noise_std > 0.0 and gen is not None:
+            noise = settings.raw_noise_std * gaussian((n, S), gen, rays_o.device)
+    with annotate("dfnet.train.composite"):
+        comp_c = composite_static_train(raw_c, z_vals, white_bkgd=settings.white_bkgd,
+                                        raw_noise=noise)
     out: Dict = {"rgb0": comp_c["rgb"], "disp0": comp_c["disp"],
                  "acc0": comp_c["acc"]}
 
     # ---- fine sampling (detached inverse-CDF union, or the culled profile)
-    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    if settings.train_cull_q > 0.0:
-        lam = S / (S + settings.N_importance)
-        nf = settings.train_fine_total or (S + settings.N_importance)
-        z_all = sample_pdf_culled(z_mid, comp_c["weights"][..., 1:-1], nf, lam=lam,
-                                  q=settings.train_cull_q,
-                                  gen=gen if settings.perturb > 0.0 else None)
-        z_samples = z_all
-    else:
-        z_samples = sample_pdf(z_mid, comp_c["weights"][..., 1:-1],
-                               settings.N_importance, gen,
-                               det=(settings.perturb == 0.0))
-        if settings.fine_importance_only:
-            z_all = torch.sort(z_samples, -1).values
+    with annotate("dfnet.train.sample"):
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        if settings.train_cull_q > 0.0:
+            lam = S / (S + settings.N_importance)
+            nf = settings.train_fine_total or (S + settings.N_importance)
+            z_all = sample_pdf_culled(z_mid, comp_c["weights"][..., 1:-1], nf, lam=lam,
+                                      q=settings.train_cull_q,
+                                      gen=gen if settings.perturb > 0.0 else None)
+            z_samples = z_all
         else:
-            z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
-    z_all = z_all.detach().contiguous()
+            z_samples = sample_pdf(z_mid, comp_c["weights"][..., 1:-1],
+                                   settings.N_importance, gen,
+                                   det=(settings.perturb == 0.0))
+            if settings.fine_importance_only:
+                z_all = torch.sort(z_samples, -1).values
+            else:
+                z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
+        z_all = z_all.detach().contiguous()
 
     # ---- fine sweep (transient)
-    packed_f = nk.pack_fine_t(params["fine"], cfgf, model.embed_xyz)
-    spec_f = nk.spec_of(cfgf, model.embed_xyz, fine=True)
-    a_emb = lookup_hist_embedding(params["embedding_a"], hist)
-    t_emb = lookup_hist_embedding(params["embedding_t"], hist)
-    dpt_f = nk.per_ray_row(params["fine"], cfgf, dir_emb, a_emb, t_emb)
-    raw_f = raw_sweep(packed_f, rays_o, rays_d, z_all, dpt_f, spec_f)
-    comp_f = composite_nerfw_train(raw_f, z_all, beta_min=cfgf.beta_min,
-                                   white_bkgd=settings.white_bkgd)
+    with annotate("dfnet.train.pack"):
+        packed_f = nk.pack_fine_t(params["fine"], cfgf, model.embed_xyz)
+        spec_f = nk.spec_of(cfgf, model.embed_xyz, fine=True)
+    with annotate("dfnet.train.fine"):
+        a_emb = lookup_hist_embedding(params["embedding_a"], hist)
+        t_emb = lookup_hist_embedding(params["embedding_t"], hist)
+        dpt_f = nk.per_ray_row(params["fine"], cfgf, dir_emb, a_emb, t_emb)
+        raw_f = raw_sweep(packed_f, rays_o, rays_d, z_all, dpt_f, spec_f)
+    with annotate("dfnet.train.composite"):
+        comp_f = composite_nerfw_train(raw_f, z_all, beta_min=cfgf.beta_min,
+                                       white_bkgd=settings.white_bkgd)
     out.update(rgb=comp_f["rgb"], disp=comp_f["disp"], acc=comp_f["acc"],
                depth=comp_f["depth"], beta=comp_f["beta"],
                transient_sigmas=comp_f["transient_sigmas"],

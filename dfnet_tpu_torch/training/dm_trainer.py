@@ -38,6 +38,11 @@ renderer), and the slices are gathered: the gather's backward hands each
 rank the summed cotangents of its rays, so the pose gradient reaches every
 rank's slice and the grads averaged over ranks are the one-device grads.
 The val metrics and the median error stay replicated.
+
+Under a torch.profiler trace (utils/profiling.py::annotate) every update
+(`_update`, which train_step runs) is the region `dfnet.dm.step`, holding
+`dfnet.dm.pose` (with `dfnet.dm.svd` inside), `dfnet.dm.render`,
+`dfnet.dm.match`, `dfnet.dm.backward` and `dfnet.dm.adam`.
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from dfnet_tpu_torch.training.feature_losses import cosine_feature_loss, pose_lo
 from dfnet_tpu_torch.training.feature_trainer import load_dfnet_params
 from dfnet_tpu_torch.training.nerf_renderer import FrozenNeRF
 from dfnet_tpu_torch.training.nerf_trainer import named_leaves
+from dfnet_tpu_torch.utils.profiling import annotate
 
 
 def select_levels_for_loss(feats: torch.Tensor, levels: Sequence[int]) -> torch.Tensor:
@@ -162,20 +168,25 @@ class DMTrainer:
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """(K, H, W, 3) images -> (K, 3, 4) poses: F (eval-mode BN) in
         `dtype`, then the SVD projection under svd_reg."""
-        _, pose12, _ = dfnet_forward(params, self.state, images.permute(0, 3, 1, 2),
-                                     self.model_cfg, return_feature=False,
-                                     upsample_h=self.scene.H, upsample_w=self.scene.W,
-                                     compute_dtype=dtype)
-        poses = pose12.reshape(-1, 3, 4)
-        return project_rotation_svd(poses) if self.cfg.svd_reg else poses
+        with annotate("dfnet.dm.pose"):
+            _, pose12, _ = dfnet_forward(params, self.state, images.permute(0, 3, 1, 2),
+                                         self.model_cfg, return_feature=False,
+                                         upsample_h=self.scene.H, upsample_w=self.scene.W,
+                                         compute_dtype=dtype)
+            poses = pose12.reshape(-1, 3, 4)
+            if not self.cfg.svd_reg:
+                return poses
+            with annotate("dfnet.dm.svd"):
+                return project_rotation_svd(poses)
 
     def render(self, nerf_params: Dict, poses: torch.Tensor,
                hists: torch.Tensor) -> torch.Tensor:
         """(K, H, W, 3) renders at (K, 3, 4) APR-frame poses, differentiable
         in the poses: render_fn for one view, else render_fn_batch."""
-        if poses.shape[0] == 1:
-            return self.nerf.render_fn(nerf_params, poses[0], hists[0])[None]
-        return self.nerf.render_fn_batch(nerf_params, poses, hists)
+        with annotate("dfnet.dm.render"):
+            if poses.shape[0] == 1:
+                return self.nerf.render_fn(nerf_params, poses[0], hists[0])[None]
+            return self.nerf.render_fn_batch(nerf_params, poses, hists)
 
     def match_losses(self, poses: torch.Tensor, rgbs: torch.Tensor, feat_params: Dict,
                      images: torch.Tensor, poses_gt12: torch.Tensor
@@ -183,20 +194,21 @@ class DMTrainer:
         """Per-image (losses, psnrs), each (K,): G's siamese features of
         [images; renders] on the selected levels, the cosine feature loss,
         the photometric MSE and the pose MSE, weighted by loss_w."""
-        k = images.shape[0]
-        x = torch.cat([images, rgbs], 0).permute(0, 3, 1, 2)
-        (f_t, f_r), _, _ = dfnet_forward(
-            feat_params, self.feat_state, x, self.model_cfg, return_feature=True,
-            is_single_stream=False, return_pose=False, upsample_h=self.scene.H,
-            upsample_w=self.scene.W, compute_dtype=self.compute_dtype)
-        levels = self.cfg.feature_matching_lvl
-        f_t, f_r = select_levels_for_loss(f_t, levels), select_levels_for_loss(f_r, levels)
-        feat_l = torch.stack([cosine_feature_loss(f_r[i], f_t[i], self.cfg.per_channel)
-                              for i in range(k)])
-        photo_l = torch.mean((rgbs - images) ** 2, dim=(1, 2, 3))
-        pose_l = torch.mean((poses.reshape(k, 12) - poses_gt12) ** 2, dim=1)
-        w = self.loss_w
-        return w[0] * pose_l + w[1] * photo_l + w[2] * feat_l, mse2psnr(photo_l)
+        with annotate("dfnet.dm.match"):
+            k = images.shape[0]
+            x = torch.cat([images, rgbs], 0).permute(0, 3, 1, 2)
+            (f_t, f_r), _, _ = dfnet_forward(
+                feat_params, self.feat_state, x, self.model_cfg, return_feature=True,
+                is_single_stream=False, return_pose=False, upsample_h=self.scene.H,
+                upsample_w=self.scene.W, compute_dtype=self.compute_dtype)
+            levels = self.cfg.feature_matching_lvl
+            f_t, f_r = select_levels_for_loss(f_t, levels), select_levels_for_loss(f_r, levels)
+            feat_l = torch.stack([cosine_feature_loss(f_r[i], f_t[i], self.cfg.per_channel)
+                                  for i in range(k)])
+            photo_l = torch.mean((rgbs - images) ** 2, dim=(1, 2, 3))
+            pose_l = torch.mean((poses.reshape(k, 12) - poses_gt12) ** 2, dim=1)
+            w = self.loss_w
+            return w[0] * pose_l + w[1] * photo_l + w[2] * feat_l, mse2psnr(photo_l)
 
     def batched_loss_fn(self, params: Dict, nerf_params: Dict, feat_params: Dict,
                         images, poses_gt12, hists):
@@ -235,17 +247,20 @@ class DMTrainer:
         """One Adam update on loss_fn(params, *args) -> (loss, aux); the
         backward reads the precision flags when it runs, so a float32 step
         keeps them as its forward has them. Returns (loss, aux), detached."""
-        with conv_precision(self.compute_dtype):
-            self.optimizer.zero_grad(set_to_none=True)
-            loss, aux = loss_fn(self.params, *args)
-            if self.cfg.check_numerics:
-                check_finite_loss(loss, f"stage-3 step {self.steps}")
-            loss.backward()
-        self.reduce_grads()
-        self.adam_update()
-        self.steps += 1
-        aux = tuple(a.detach() for a in aux) if isinstance(aux, tuple) else aux.detach()
-        return loss.detach(), aux
+        with annotate("dfnet.dm.step"):
+            with conv_precision(self.compute_dtype):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss, aux = loss_fn(self.params, *args)
+                if self.cfg.check_numerics:
+                    check_finite_loss(loss, f"stage-3 step {self.steps}")
+                with annotate("dfnet.dm.backward"):
+                    loss.backward()
+            with annotate("dfnet.dm.adam"):
+                self.reduce_grads()
+                self.adam_update()
+            self.steps += 1
+            aux = tuple(a.detach() for a in aux) if isinstance(aux, tuple) else aux.detach()
+            return loss.detach(), aux
 
     def train_step(self, images, poses_gt12, hists) -> Tuple[torch.Tensor, torch.Tensor]:
         """One update on K images; (per-image losses, psnrs), detached."""

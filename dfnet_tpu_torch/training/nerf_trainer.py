@@ -13,6 +13,11 @@ schedule on the kernel step where it can serve. Splits render at test
 settings through render/fast.py or the plain renderer. Checkpoints hold
 the params and the Adam state in the JAX package's layout.
 
+Under a torch.profiler trace (utils/profiling.py::annotate) a step is the
+region `dfnet.train.step`, holding `dfnet.train.draw`, the kernel render's
+phases (render/fused_train.py), `dfnet.train.proposal`,
+`dfnet.train.backward` and `dfnet.train.adam`.
+
 Random draws come from explicit generators: `gen` (on the device) for the
 pixel selection and the render's samples, a numpy generator for the
 epoch order; the params are initialised from a CPU generator.
@@ -77,6 +82,7 @@ from dfnet_tpu_torch.training.checkpoints import (
     params_from_numpy,
     save_pytree,
 )
+from dfnet_tpu_torch.utils.profiling import annotate
 
 
 def exp_decayed_lr(cfg: Config, global_step: int) -> float:
@@ -133,14 +139,15 @@ def stage1_loss(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel], cfg: C
         out = render_rays(params, model, rays_o, rays_d, hist, settings, gen, epoch=ep)
     loss = sum(nerfw_loss(out, target).values())
     if model.cfg_proposal is not None and "proposal" in params and "weights_fine" in out:
-        z_vals = out["z_vals"].detach()
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-        sig_p = nerfw_apply_rays(params["proposal"], model.cfg_proposal,
-                                 model.embed_proposal(pts), sigma_only=True)
-        comp_p = composite_nerfw(sig_p, z_vals, output_transient=False,
-                                 sigma_only=True)
-        loss = loss + cfg.proposal_loss_w * proposal_bound_loss(
-            comp_p["weights"], z_vals, out["weights_fine"], out["z_all"])
+        with annotate("dfnet.train.proposal"):
+            z_vals = out["z_vals"].detach()
+            pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+            sig_p = nerfw_apply_rays(params["proposal"], model.cfg_proposal,
+                                     model.embed_proposal(pts), sigma_only=True)
+            comp_p = composite_nerfw(sig_p, z_vals, output_transient=False,
+                                     sigma_only=True)
+            loss = loss + cfg.proposal_loss_w * proposal_bound_loss(
+                comp_p["weights"], z_vals, out["weights_fine"], out["z_all"])
     return loss, img2mse(out["rgb"], target)
 
 
@@ -210,13 +217,16 @@ class NeRFTrainer:
         """One update on N_rand random pixels of train image `idx` at the
         given epoch (default: global_step, which is the epoch the CLI
         trains); returns (loss, psnr) as device tensors."""
-        if epoch is None:
-            epoch = self.global_step
-        loss, mse = self.loss_and_grads(
-            *self.draw_batch(idx), epoch,
-            where=f"the stage-1 step of epoch {epoch} on train image {idx}")
-        self.adam_update(lr)
-        return loss, mse2psnr(mse)
+        with annotate("dfnet.train.step"):
+            if epoch is None:
+                epoch = self.global_step
+            with annotate("dfnet.train.draw"):
+                batch = self.draw_batch(idx)
+            loss, mse = self.loss_and_grads(
+                *batch, epoch, where=f"the stage-1 step of epoch {epoch} on train image {idx}")
+            with annotate("dfnet.train.adam"):
+                self.adam_update(lr)
+            return loss, mse2psnr(mse)
 
     def draw_batch(self, idx: int):
         """(rays_o, rays_d, target, hist) of N_rand pixels of train image
@@ -251,8 +261,9 @@ class NeRFTrainer:
                                 rays_o, rays_d, target, hist_b, gen, fused, epoch)
         if self.cfg.check_numerics:
             check_finite_loss(loss, where)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with annotate("dfnet.train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         loss, mse = loss.detach(), mse.detach()
         if self.mesh is not None:
             loss, mse = all_reduce_grads_([t for _, t in self._named],

@@ -1,7 +1,15 @@
-"""Tracing and profiling hooks (port of dfnet_tpu/utils/profiling.py): a
-step timer with EMA and percentile summaries, a torch.profiler trace
-context that writes a Chrome trace (chrome://tracing, Perfetto), and named
-regions that show in it."""
+"""Tracing hooks (port of dfnet_tpu/utils/profiling.py): a torch.profiler
+trace context that writes a Chrome trace (chrome://tracing, Perfetto), and
+the program's named phase regions that show in it.
+
+The render view, the stage-1 step and the stage-3 step each open one root
+region (`dfnet.render.view`, `dfnet.train.step`, `dfnet.dm.step`) and a
+region per phase inside it (`dfnet.render.sample`, `dfnet.train.backward`,
+...). They are torch.profiler user annotations, so they share the trace's
+clock with the kernels, copies and runtime calls: an idle gap of the device
+lies inside the phase that left it idle. With no trace running a region
+costs one read of the profiler's flag.
+"""
 
 from __future__ import annotations
 
@@ -9,53 +17,11 @@ import contextlib
 import os
 import os.path as osp
 import time
-from collections import deque
-from typing import Deque, Dict, Optional
+from typing import Optional
 
-import numpy as np
+import torch
 
-
-class StepTimer:
-    """Wall-clock step timer with exponential moving average and
-    percentile reporting. Time on the host's clock: a GPU step must end in
-    a sync (a read of its loss) inside the timed region.
-
-    Usage:
-        timer = StepTimer()
-        with timer.step():
-            ... one training step ...
-        print(timer.summary())
-    """
-
-    def __init__(self, window: int = 200, ema_alpha: float = 0.05):
-        self.samples: Deque[float] = deque(maxlen=window)
-        self.ema: Optional[float] = None
-        self.alpha = ema_alpha
-        self.count = 0
-
-    @contextlib.contextmanager
-    def step(self):
-        t0 = time.perf_counter()
-        yield
-        self.add(time.perf_counter() - t0)
-
-    def add(self, dt: float):
-        self.samples.append(dt)
-        self.ema = dt if self.ema is None else (1 - self.alpha) * self.ema + self.alpha * dt
-        self.count += 1
-
-    def summary(self) -> Dict[str, float]:
-        if not self.samples:
-            return {}
-        arr = np.asarray(self.samples)
-        return {
-            "steps": self.count,
-            "mean_ms": float(arr.mean() * 1e3),
-            "ema_ms": float((self.ema or 0.0) * 1e3),
-            "p50_ms": float(np.percentile(arr, 50) * 1e3),
-            "p95_ms": float(np.percentile(arr, 95) * 1e3),
-            "steps_per_sec": float(1.0 / arr.mean()),
-        }
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -67,7 +33,6 @@ def device_trace(logdir: Optional[str]):
     if not logdir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -79,10 +44,10 @@ def device_trace(logdir: Optional[str]):
     prof.export_chrome_trace(osp.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """A named region, visible in device_trace's trace."""
-    import torch
-
-    with torch.profiler.record_function(name):
-        yield
+    """A named region of the trace: torch.profiler.record_function(name)
+    while a profiler is recording, else one shared no-op context. Calls no
+    torch op and never waits for the device."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

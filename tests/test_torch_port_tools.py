@@ -218,15 +218,7 @@ def test_metrics_match_jax(batched):
     assert float(metrics.psnr(a, b)) == pytest.approx(float(metrics.psnr(ta, tb)))
 
 
-def test_step_timer_and_trace(tmp_path):
-    timer = profiling.StepTimer(window=3)
-    assert timer.summary() == {}
-    for _ in range(4):
-        with timer.step():
-            torch.ones(8).sum()
-    s = timer.summary()
-    assert sorted(s) == ["ema_ms", "mean_ms", "p50_ms", "p95_ms", "steps", "steps_per_sec"]
-    assert s["steps"] == 4 and len(timer.samples) == 3 and s["steps_per_sec"] > 0
+def test_device_trace_and_annotate(tmp_path):
     with profiling.device_trace(None):
         pass
     logdir = tmp_path / "trace"
