@@ -23,9 +23,14 @@ Importance-sampling modes (as in the JAX package):
     lindisp=False; otherwise the call takes the two-kernel path, as in the
     JAX package.
 
+A caller that renders many views with one set of weights passes a
+PackCache: the weights are packed for the kernels once per weight version
+(a miss) and reused on every later view (a hit), counted in PACKS.
+
 Under a torch.profiler trace (utils/profiling.py::annotate) a view is the
-region `dfnet.render.view`, holding `dfnet.render.pack` and, per chunk,
-`dfnet.render.placement`, `.sample`, `.fine` and `.composite`.
+region `dfnet.render.view`, holding `dfnet.render.pack` (the pack, or the
+PackCache lookup) and, per chunk, `dfnet.render.placement`, `.sample`,
+`.fine` and `.composite`.
 """
 
 from __future__ import annotations
@@ -89,6 +94,46 @@ class FastNeRFH:
             packed_proposal=packed_p,
             spec_proposal=spec_p,
         )
+
+
+PACKS = {"hits": 0, "misses": 0}       # PackCache lookups, every cache
+
+
+def _leaves(tree: Dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+class PackCache:
+    """The FastNeRFH of the last weights packed, for a caller that renders
+    many views: a lookup packs anew (a miss) unless the model, the
+    proposal choice and every leaf of the params tree are those of the last
+    pack, each leaf the same tensor at the same `_version`. An in-place
+    write (an optimizer step, `add_`) bumps the version; a loaded or
+    re-adopted tree brings new tensors. The leaves are held, so their ids
+    are not reused. One entry; each caller owns its own."""
+
+    def __init__(self):
+        self._key = None
+        self._fast: Optional[FastNeRFH] = None
+
+    def get(self, params: Dict, model: NeRFHModel,
+            use_proposal: bool = True) -> FastNeRFH:
+        leaves = list(_leaves(params))
+        key = self._key
+        if (key is not None and key[0] is model and key[1] == use_proposal
+                and len(key[2]) == len(leaves)
+                and all(p == q and t is u and t._version == v
+                        for (p, t), (q, u, v) in zip(leaves, key[2]))):
+            PACKS["hits"] += 1
+            return self._fast
+        PACKS["misses"] += 1
+        self._fast = FastNeRFH.pack(params, model, use_proposal=use_proposal)
+        self._key = (model, use_proposal, [(p, t, t._version) for p, t in leaves])
+        return self._fast
 
 
 def kernel_ray_align(model, settings: RenderSettings,
@@ -373,18 +418,20 @@ def render_image_fast(params: Dict, model: NeRFHModel, c2w, hist,
                       cull_q: float = 0.0, n_fine: Optional[int] = None,
                       n_place: Optional[int] = None,
                       fuse_composite: bool = False,
-                      fast: Optional[FastNeRFH] = None, mesh=None) -> Dict:
+                      packs: Optional[PackCache] = None, mesh=None) -> Dict:
     """Full-image render through the kernels (test-time drop-in for
     volume.render_image: same rgb/disp/acc keys). Rays are padded to a
-    multiple of `chunk` and rendered one chunk at a time. Pass a packed
-    `fast` to skip re-packing the weights per call. With a mesh
-    (parallel/mesh.py) each rank renders its slice of the ray axis, with
-    the kernels the one-device render launches on all of them, and the
-    slices are gathered."""
+    multiple of `chunk` and rendered one chunk at a time. Pass the
+    caller's `packs` to pack the weights once per weight version rather
+    than on every call. With a mesh (parallel/mesh.py) each rank renders
+    its slice of the ray axis, with the kernels the one-device render
+    launches on all of them, and the slices are gathered."""
     with annotate("dfnet.render.view"):
-        if fast is None:
-            with annotate("dfnet.render.pack"):
+        with annotate("dfnet.render.pack"):
+            if packs is None:
                 fast = FastNeRFH.pack(params, model, use_proposal=use_proposal)
+            else:
+                fast = packs.get(params, model, use_proposal)
         align = kernel_ray_align(model, settings, n_fine, n_place)
         chunk = max(chunk // align, 1) * align
         n, ro, rd = chunked_rays(H, W, focal, c2w, chunk, mesh)

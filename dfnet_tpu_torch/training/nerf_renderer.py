@@ -6,7 +6,8 @@ to APR-frame poses (pose/se3.py::rescale_poses_to_nerf) and the tinyimg
 path: render at 1/tinyscale, then bicubic-upsample to full size.
 
   - render_at_pose / prerender_views: no-grad renders (stage-2 pre-renders,
-    eval sweeps) through the CUDA kernels (render/fast.py::render_image_fast)
+    eval sweeps) through the CUDA kernels (render/fast.py::render_image_fast,
+    the weights packed once per weight version in the object's PackCache)
     when cfg.fast_render and the model supports them, else the plain
     renderer;
   - render_fn / render_fn_batch: the plain renderer with autograd on,
@@ -87,6 +88,7 @@ class FrozenNeRF:
         self.chunk = min(cfg.chunk, self.rh * self.rw)
         self.uses_fast_render = bool(cfg.fast_render and fast_mod.fast_path_supported(
             model, self.settings))
+        self.packs = fast_mod.PackCache()
 
     @property
     def is_vanilla(self) -> bool:
@@ -194,7 +196,7 @@ class FrozenNeRF:
         out = fast_mod.render_image_fast(
             self.params, self.model, self._to_nerf(pose_apr), hist, self.rh, self.rw,
             self.rf, self.settings, chunk=self.chunk, use_proposal=cfg.proposal_render,
-            mesh=self.mesh, **fast_mod.cull_schedule_kwargs(cfg))
+            packs=self.packs, mesh=self.mesh, **fast_mod.cull_schedule_kwargs(cfg))
         return self._upsample(out["rgb"])
 
     def prerender_views(self, poses: np.ndarray, hists: np.ndarray,

@@ -313,11 +313,13 @@ class NeRFTrainer:
                                  and fast_mod.fast_path_supported(
                                      model, self.settings_test))
         if self.uses_fast_render:
+            packs = fast_mod.PackCache()
+
             def render_one(params, pose, hist, epoch):
                 return fast_mod.render_image_fast(
                     params, model, pose, hist, eh, ew, ef, self.settings_test,
                     chunk=chunk, use_proposal=cfg.proposal_render,
-                    **fast_mod.cull_schedule_kwargs(cfg), mesh=mesh)
+                    **fast_mod.cull_schedule_kwargs(cfg), packs=packs, mesh=mesh)
         else:
             def render_one(params, pose, hist, epoch):
                 ep = epoch if cfg.reduce_embedding == 2 else None

@@ -558,6 +558,36 @@ def test_mlp_stack_kernel_occupancy_and_widths(cuda):
             ms.mlp_stack_int8(x, ws)
 
 
+@pytest.mark.gpu
+def test_trainer_views_pack_once_on_the_card(cuda, tmp_path):
+    """Two views through the trainer's render on the card: the first packs
+    the weights (a miss), the second reuses them (a hit), and each is
+    bit-equal to the view rendered with a fresh pack."""
+    from dfnet_tpu_torch.config import parse_args
+    from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+    from dfnet_tpu_torch.render import fast
+    from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
+
+    cfg = parse_args(["--NeRFH", "--encode_hist", "--dataset_type", "synthetic",
+                      "--netdepth", "2", "--netwidth", "32", "--netdepth_fine", "2",
+                      "--netwidth_fine", "32", "--N_samples", "16", "--N_importance", "16",
+                      "--expname", "nerfh", "--basedir", str(tmp_path), "--device", "cuda"])
+    sc = make_synthetic_scene(n_train=2, n_val=2, H=12, W=16, focal=16.0, seed=0)
+    tr = NeRFTrainer(cfg, sc)
+    assert tr.uses_fast_render
+    before = dict(fast.PACKS)
+    for i in range(2):
+        pose = torch.as_tensor(sc.val.poses[i], dtype=torch.float32, device=cuda)
+        hist = torch.as_tensor(sc.val.hists[i], device=cuda)
+        got = tr._render(tr.params, pose, hist, 0)
+        want = fast.render_image_fast(tr.params, tr.model, pose, hist, sc.H, sc.W, sc.focal,
+                                      tr.settings_test, chunk=sc.H * sc.W)
+        torch.cuda.synchronize()
+        for k in ("rgb", "disp", "acc"):
+            assert torch.equal(got[k], want[k]), (i, k)
+    assert {k: fast.PACKS[k] - before[k] for k in before} == {"hits": 1, "misses": 1}
+
+
 # ------------------------------------------------------------------ stage 2
 
 def _feature_trainer(device, *flags, nerf=None, H=32, W=48):
