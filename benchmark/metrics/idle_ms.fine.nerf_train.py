@@ -1,0 +1,16 @@
+"""The device's idle time a step of the original NeRF's stage-1 train cell, in
+ms, under per_ray_row_vanilla and the fine RawSweep (fine_raw_t on
+the fine net's static pack, the 192-sample union) (benchmark/spans.py)."""
+
+from benchmark import spans
+
+NAME = "idle_ms.fine.nerf_train"
+UNIT = "ms"
+LAYER = "training/nerf_trainer.py NeRFTrainer.train_step"
+SOURCE = "program_span"
+MOVES = "train_rays_per_s"
+WORKLOADS = ["nerf_vanilla.train"]
+
+
+def read(run):
+    return spans.idle_ms(run, "train", "fine")

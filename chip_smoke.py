@@ -31,7 +31,19 @@ Phases (any failure exits non-zero):
                log lines of fine_raw_t, fine_composite_t, coarse_sigma_t
                and proposal_z_rows, ptxas' registers and spills and the
                blocks an SM of the kernel the width runs. coarse_sigma_t
-               also runs at the trainer's eval render of one val view;
+               also runs at the trainer's eval render of one val view. The
+               vanilla case (vanilla_cases): the original NeRF's trainer of
+               the benchmark cell nerf_vanilla.train (D=8 W=256 both nets,
+               64 + 128 samples, 4096 rays of 800x800 frames, skip 5, the
+               static mode) after the cell's set-up: fine_raw_t and
+               raw_bwd_t of both sweeps of a train step (S=64 and the
+               192-sample union), coarse_sigma_t on the sigma-only pack
+               and fine_raw_t at S=192 of a test render, each against its
+               plain version as above; and two 800x800 test renders
+               (NeRFTrainer._render: render_image_fast) against
+               benchmark/reference_nerf.py in float32, within
+               VANILLA_RENDER_LIMITS, where the reference at fp8 operands
+               must fall outside one of them;
   3. e2e     — save assets/nerfh_synthetic_301.npz as a checkpoint and run
                the port's stage-1 CLI with --render_test at the shipped
                full-width config; the coarse_sigma_t and fine_raw_t launch
@@ -165,7 +177,9 @@ Phases (any failure exits non-zero):
                (--NeRFH False) at the shipped widths through the stage-1 CLI
                (configs/config_nerfh.txt: training, --render_test) and the
                stage-2 CLI (configs/config_dfnet.txt, one epoch) on a
-               240x320 synthetic scene, launching no kernel; the stage-3 CLI
+               240x320 synthetic scene, on the plain route (--fused_train
+               false --fast_render false; its kernel route is phase
+               kernels' vanilla case), launching no kernel; the stage-3 CLI
                over it must raise NotImplementedError (the JAX package's
                stage 3 fails there with KeyError); stage-1 losses finite and
                falling, val PSNR above the seeded init's, the checkpoint
@@ -256,6 +270,23 @@ PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_INT8 = 1979e12         # H100 SXM dense int8 OP/s (data sheet)
 PEAK_F32 = 67e12            # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_BYTES_S = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
+# phase_kernels' vanilla case: the benchmark cell whose trainer it takes,
+# the cell's seed, and the test renders' limits against the float32
+# reference (benchmark/generators/render.py's numbers). rgb is held by its
+# mean gap: the original NeRF's last interval is 1e10 long, so the few rays
+# whose density there lies within a bf16 rounding of nought turn opaque or
+# clear, which the RMSE carries in full (2.2e-3 and 2.8e-3 on one seed of
+# four, 2.6e-5-4.7e-5 on the others). rgb_mae and disp_rel lie between the
+# program's readings (2.0e-5-4.1e-5, 2.9e-5-1.11e-4 relative) and the fp8
+# control's (4.9e-4-6.5e-4, 7.5e-4-1.5e-3) over two views of four seeds at
+# 800x800, tighter than the render cells' 1.1e-3 / 1.6e-3, which the fp8
+# control passes at this size; acc_mae at the render cells' limit, since a
+# young net's views are opaque and read ~2e-7 under either precision
+# (PERF.md section 6, PR 21).
+VANILLA_CELL = "nerf_vanilla.train"
+VANILLA_SEED = 2147483101
+VANILLA_VIEWS = 2
+VANILLA_RENDER_LIMITS = {"rgb_mae": 2e-4, "disp_rel": 2.5e-4, "acc_mae": 2e-3}
 REPLACES = {
     "coarse_sigma_t": "dfnet_tpu/ops/nerf_kernels.py:530",
     "fine_raw_t": "dfnet_tpu/ops/nerf_kernels.py:566",
@@ -354,14 +385,18 @@ def capture(fast, settings, ro, rd, hist, **kw):
 
 def capture_train_step(trainer):
     """Run one train step; the arguments of its fine_raw_t and raw_bwd_t
-    calls, keyed by the sweep ("static" coarse, "fine")."""
+    calls, keyed by the sweep ("static" coarse, "fine"). A vanilla pair
+    runs both nets in the static mode: its fine sweep is the one that is
+    not N_samples long."""
     calls = spy_on(("fine_raw_t", "raw_bwd_t"),
                    lambda: trainer.train_step(0, trainer.cfg.lrate))
+    vanilla = type(trainer.model).__name__ == "VanillaNeRFModel"
     out = {}
     for name, cs in calls.items():
         for a, k in cs:
             spec = a[-1]
-            out[(name, "static" if spec.static else "fine")] = (a, k)
+            fine = not spec.static or (vanilla and a[3].shape[1] != trainer.cfg.N_samples)
+            out[(name, "fine" if fine else "static")] = (a, k)
     return out
 
 
@@ -439,7 +474,7 @@ def compare_rows(got, want, tol, rtol=None):
     return ok, info
 
 
-def compare_grads(got, want, spec, S):
+def compare_grads(got, want, spec, S, hold_dpt=True):
     """raw_bwd_t's (d_w, d_b, d_dpt) against raw_bwd_plain's: each packed
     weight and bias entry within TOL_GRAD of its largest magnitude; d_dpt
     per element within TOL_GRAD of its largest magnitude, but for a share
@@ -447,7 +482,8 @@ def compare_grads(got, want, spec, S):
     samples of one ray, so it takes the ReLU mask flips (an activation at a
     rounding midpoint, see FLIP_SHARE) of S points, and one flip moves it
     by a few percent; the weight grads sum ~10^5 points and average such
-    flips out."""
+    flips out. With hold_dpt False, d_dpt is reported and not held (the
+    caller holds it through the stash: dpt_through_stash)."""
     import torch
 
     from dfnet_tpu_torch.ops import nerf_kernels as nk
@@ -470,11 +506,67 @@ def compare_grads(got, want, spec, S):
     ratio = (a - b).abs() / (TOL_GRAD * scale)
     flips = int((ratio > 1).sum())
     max_abs = max(max_abs, (a - b).abs().max().item())
-    ok = (ok and bool(torch.isfinite(a).all()) and flips <= S * FLIP_SHARE * a.numel()
-          and ratio.max().item() <= FLIP_CAP)
+    ok = (ok and bool(torch.isfinite(a).all())
+          and (not hold_dpt or (flips <= S * FLIP_SHARE * a.numel()
+                                and ratio.max().item() <= FLIP_CAP)))
     return ok, dict(max_abs_err=max_abs, worst=dict(entry=worst, rel=rel[worst]),
                     d_dpt=dict(rel=ratio.max().item() * TOL_GRAD, out_of_tol=flips,
                                n=a.numel()))
+
+
+def dpt_through_stash(a, k):
+    """raw_bwd_t's d_dpt held link by link through the kernel's own stash,
+    for the original NeRF, where compare_grads' flip rule does not hold: its
+    last interval is 1e10 long, so a ray's last sample carries most of the
+    ray's direction-row gradient, and one dt0 unit that the kernel and the
+    plain version round to opposite sides of nought there switches that
+    gradient on or off, moving the ray's d_dpt entry by up to its whole
+    value (on the card every entry outside the rule was such a flip at a
+    ray's last sample, |dt0| under 5e-5 on either side). The links: d_dpt
+    is the sum of the stashed g_dt over the ray's samples (within 1e-4 of
+    the sum of their magnitudes; float32 sums in another order); g_dt is
+    the dt0-masked product of the stashed g_raw and the rgb heads,
+    recomputed from the stash (rtol 2e-2, atol 1e-3 of its largest
+    magnitude, tests/test_torch_port_gpu.py's bar for a stash layer);
+    g_raw is g rounded to bf16, exactly; dt0 agrees with the plain
+    version's under compare_rows' rule at TOL_RAW (a flip moves an
+    activation by no more than its distance from nought). Returns (ok,
+    info): each link's worst ratio to its bar, and the dt0 mask flips and
+    the largest |dt0| at one."""
+    import torch
+
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+
+    packed, spec = a[0], a[-1]
+    g = a[5]
+    N, S = a[3].shape
+    half, Wd, n_raw = spec.W // 2, spec.Wd, spec.n_raw
+    launches, out, stash = nk.raw_bwd_launches(*a, **k)
+    for _, fn in launches:
+        fn()
+    torch.cuda.synchronize()
+    views = nk.bwd_stash_views(stash, spec, N, S)
+    dt0, g_dt, g_raw = (views[n].float() for n in ("dt0", "g_dt", "g_raw"))
+    del stash, views
+    torch.cuda.empty_cache()
+    ray = g_dt.reshape(N, S, Wd)
+    sums = ((out[2] - ray.sum(1)).abs() / (1e-4 * ray.abs().sum(1)).clamp_min(1e-30)).max()
+    heads = nk.unpack(packed, spec)["w_heads"].float()
+    want = torch.where(dt0[:, :half] > 0, g_raw[:, :3] @ heads[0:3, :half],
+                       torch.zeros_like(dt0[:, :half])).bfloat16().float()
+    bar = 2e-2 * want.abs() + 1e-3 * max(want.abs().max().item(), 1e-30)
+    link = ((g_dt - want).abs() / bar).max()
+    exact = torch.equal(g_raw[:, :n_raw], g.reshape(n_raw, N * S).t().bfloat16().float())
+    plain = nk.bwd_stash_views(nk.raw_bwd_stash_plain(*a, **k), spec, N, S)["dt0"].float()
+    torch.cuda.empty_cache()
+    dt0_ok, dt0_info = compare_rows(dt0, plain, TOL_RAW)
+    flip = (dt0 > 0) != (plain > 0)
+    at_flip = torch.maximum(dt0.abs(), plain.abs())[flip]
+    info = dict(sum_ratio=sums.item(), g_dt_ratio=link.item(), g_raw_exact=exact,
+                dt0=dt0_info, dt0_flips=int(flip.sum()),
+                dt0_at_flip_max=at_flip.max().item() if at_flip.numel() else 0.0)
+    ok = info["sum_ratio"] <= 1 and info["g_dt_ratio"] <= 1 and exact and dt0_ok
+    return ok, info
 
 
 def bwd_parts(a, k):
@@ -606,9 +698,11 @@ def stack_sass() -> dict:
     return out
 
 
-def measure(name, a, k, asset, sched):
+def measure(name, a, k, asset, sched, dpt_by_stash=False):
     """One kernel call on the card against its plain version: agreement,
-    CUDA-event times, the bound. Raises SystemExit on disagreement."""
+    CUDA-event times, the bound. Raises SystemExit on disagreement. With
+    dpt_by_stash, raw_bwd_t's d_dpt is held through its stash
+    (dpt_through_stash) in place of compare_grads' flip rule."""
     import torch
 
     from dfnet_tpu_torch.ops import nerf_kernels as nk
@@ -624,7 +718,11 @@ def measure(name, a, k, asset, sched):
         torch.cuda.synchronize()
         want = plain(*a, **k)
         if name == "raw_bwd_t":
-            ok, info = compare_grads(got, want, spec, S)
+            ok, info = compare_grads(got, want, spec, S, hold_dpt=not dpt_by_stash)
+            del got, want
+            if dpt_by_stash:
+                ok_dpt, info["d_dpt_through_stash"] = dpt_through_stash(a, k)
+                ok = ok and ok_dpt
         elif name == "proposal_z_rows":
             ok, info = compare_rows(got, want, TOL_Z, rtol=0.0)
             info["unsorted_rows"] = int((got[:, 1:] < got[:, :-1]).any(-1).sum())
@@ -722,6 +820,91 @@ def phase_kernels(device):
         cases.append(measure("coarse_sigma_t", a, k, asset, "train-eval"))
         del tr
         torch.cuda.empty_cache()
+    return cases + vanilla_cases(device)
+
+
+def vanilla_cases(device) -> list:
+    """phase_kernels' vanilla case: the trainer of the benchmark cell
+    VANILLA_CELL at VANILLA_SEED after the cell's set-up (its checked and
+    warm-up steps, launch contract held). Both sweeps of one train step
+    (fine_raw_t, raw_bwd_t at S=N_samples and over the sorted union), and
+    the placement (coarse_sigma_t, sigma-only pack) and fine sweep of the
+    first chunk of one test view, each through measure(). Then
+    VANILLA_VIEWS 800x800 views through NeRFTrainer._render (what
+    render_split and --render_test call) against benchmark/
+    reference_nerf.py's render of the same weights, in float32 and at fp8
+    operands: the program's numbers within VANILLA_RENDER_LIMITS, the fp8
+    control's outside one of them, every view on the kernel route."""
+    import torch
+
+    from benchmark import harness
+    from benchmark import reference_nerf as ref
+    from benchmark.generators import render as render_gen
+    from benchmark.generators import train_vanilla
+    from benchmark.reference_nerfh import Matmul
+    from benchmark.scene import FAR, NEAR, pixel_rays, tree_map
+    from dfnet_tpu_torch.ops import nerf_kernels as nk
+    from dfnet_tpu_torch.training import nerf_trainer
+
+    spec = harness.load_spec()
+    cfg = harness.config_file(spec, harness.cell_entry(spec, VANILLA_CELL)["config"])
+    cell = train_vanilla.Cell(cfg, harness.workload_file(VANILLA_CELL), VANILLA_SEED,
+                              str(device))
+    cell.setup()
+    tr = cell.tr
+    if not (tr.uses_fused_train and tr.uses_fast_render):
+        raise SystemExit("[kernels] the vanilla trainer is not on the kernel route")
+    asset = f"{VANILLA_CELL} seed {VANILLA_SEED}"
+    cases = [measure(name, a, k, asset, f"vanilla-train-{sweep}", dpt_by_stash=True)
+             for (name, sweep), (a, k) in capture_train_step(tr).items()]
+    torch.cuda.empty_cache()
+
+    params = tree_map(lambda t: t.detach(), tr.params)
+    sizes = dict(cfg, near=NEAR, far=FAR)
+    H, W, focal = cell.wl["H"], cell.wl["W"], cell.wl["focal"]
+    for v in range(VANILLA_VIEWS):
+        pose = torch.as_tensor(cell.poses[v], dtype=torch.float32, device=device)
+        hist = torch.as_tensor(cell.hists[v], device=device)
+        views0, before, out = dict(nerf_trainer.ROUTES), dict(nk.LAUNCHES), {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls = spy_on(("coarse_sigma_t", "fine_raw_t", "fine_composite_t"),
+                       lambda: out.update(tr._render(tr.params, pose, hist, tr.global_step)))
+        got = tuple(out[k].cpu() for k in ("rgb", "disp", "acc"))
+        render_s = time.perf_counter() - t0
+        launches = {k: nk.LAUNCHES[k] - before[k] for k in before}
+        kernel_views = nerf_trainer.ROUTES["kernel_views"] - views0["kernel_views"]
+        chunks = len(calls["fine_raw_t"])
+        if (kernel_views != 1 or calls["fine_composite_t"] or not chunks
+                or len(calls["coarse_sigma_t"]) != chunks):
+            raise SystemExit(f"[kernels] vanilla view {v} left the kernel route: "
+                             f"{kernel_views} kernel views, launches {launches}")
+        if v == 0:
+            for name in ("coarse_sigma_t", "fine_raw_t"):
+                a, k = calls[name][0]
+                cases.append(measure(name, a, k, asset, "vanilla-render"))
+        del calls
+        ro, rd = pixel_rays(H, W, focal, pose)
+        want, fp8 = (tuple(x[k].cpu() for k in ("rgb", "disp", "acc"))
+                     for x in (ref.render_view(params, sizes, ro, rd, Matmul(prec))
+                               for prec in ("fp32", "fp8")))
+        prog = {k: x["value"] for k, x in
+                render_gen.compare([got], [want], VANILLA_RENDER_LIMITS).items()}
+        ctrl = {k: x["value"] for k, x in
+                render_gen.compare([fp8], [want], VANILLA_RENDER_LIMITS).items()}
+        rmse = render_gen.compare([got], [want], {"rgb_rmse": 0.0})["rgb_rmse"]["value"]
+        log(f"[kernels] vanilla render view {v} ({H}x{W}, {chunks} chunks): program "
+            f"{json.dumps(prog)} (rgb_rmse {rmse:.3e}, not held) fp8 control "
+            f"{json.dumps(ctrl)} limits {json.dumps(VANILLA_RENDER_LIMITS)} "
+            f"launches {json.dumps({k: n for k, n in launches.items() if n})} "
+            f"render_s={render_s:.3f}")
+        if any(prog[k] > lim for k, lim in VANILLA_RENDER_LIMITS.items()):
+            raise SystemExit(f"[kernels] vanilla view {v} disagrees with the reference: {prog}")
+        if all(ctrl[k] <= lim for k, lim in VANILLA_RENDER_LIMITS.items()):
+            raise SystemExit(f"[kernels] the fp8 control passes the vanilla render's "
+                             f"limits: {ctrl}")
+    del tr, cell
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -2664,9 +2847,10 @@ def phase_models(device):
     checkpoint; V-stage3: the stage-3 CLI at configs/config_dfnetdm.txt
     over the same NeRF must raise NotImplementedError; Z-zoo: each backbone
     family (ZOO_CASES, training/parity.py::zoo_model) at batch ZOO_BATCH in float32
-    (TF32 off) and bf16 autocast. Checks: no kernel launched on any vanilla
-    path (the kernels serve NeRF-H alone, as in the JAX package); stage-1
-    losses finite and falling, val PSNR above the seeded init's, the
+    (TF32 off) and bf16 autocast. Every vanilla run here pins the plain
+    route (--fused_train false --fast_render false; the kernel route is
+    phase_kernels' vanilla case). Checks: no kernel launched on those
+    runs; stage-1 losses finite and falling, val PSNR above the seeded init's, the
     checkpoint reloading to the same render bit for bit, the card's render
     of a val view against the CPU's (parity.vanilla_render_agreement);
     stage-2 losses finite; each zoo family card against CPU under the CPU
@@ -2723,8 +2907,11 @@ def phase_models(device):
             return res
 
     with tempfile.TemporaryDirectory() as base:
+        # the plain route, whose card render the CPU's is held to below (the
+        # kernel route is the benchmark's nerf_vanilla.train cell)
         s1 = ["--config", str(cfgdir / "config_nerfh.txt"), "--NeRFH", "False",
-              "--dataset_type", "synthetic", "--basedir", base, "--device", str(device)]
+              "--dataset_type", "synthetic", "--basedir", base, "--device", str(device),
+              "--fused_train", "false", "--fast_render", "false"]
         init = NeRFTrainer(parse_args(s1, stage="nerf"), scene)
         if type(init.model).__name__ != "VanillaNeRFModel" or init.uses_fused_train:
             raise SystemExit("[models] --NeRFH False did not build the vanilla pair")

@@ -31,16 +31,23 @@ padding) is not carried over: tiles are point-major, point p belongs to
 ray p // S, the transient chain runs at its real width W/2 and ragged
 edges are masked in-kernel.
 
-Packed weights (`pack_coarse_t`, `pack_fine_t`, `pack_static_t`): one
-flat bf16 tensor of (out, in) matrices with in-dims padded to 16, one
-flat float32 bias tensor and the PE frequencies, in the order `_layout`
-gives (the CUDA code walks the same order). Exact linear algebra of the
+Packed weights (`pack_coarse_t`, `pack_fine_t`, `pack_static_t`,
+`pack_vanilla_t`): one flat bf16 tensor of (out, in) matrices with in-dims
+padded to 16, one flat float32 bias tensor and the PE frequencies, in the
+order `_layout` gives (the CUDA code walks the same order). Exact linear algebra of the
 JAX pack is kept: xyz_final folds into the [dir | trans_0] layer (w_dt;
 the dir half only in the static pack), the per-ray halves of that layer
 come in as `per_ray_row` / `per_ray_row_static`, and the skip layer is
 split [x0 | h]. The packs are differentiable (casts, cats, transposes,
 the fold matmul and slice writes), so gradients of the packed tensors
 reach the params tree through autograd.
+
+The vanilla NeRF (NeRFH=False, models/nerf_vanilla.py) packs onto the
+static and sigma-only specs (`pack_vanilla_t`): its trunk with the skip one
+layer later (`vanilla_skip`), alpha as the sigma row over h, feature folded
+into the point half of views_0 as w_dt, the direction half of views_0 as
+the per-ray row (`per_ray_row_vanilla`) and rgb as the heads. The kernels
+run it unchanged.
 """
 
 from __future__ import annotations
@@ -49,13 +56,14 @@ import ctypes
 import functools
 from fractions import Fraction
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 
 from dfnet_tpu_torch.models.embedder import Embedder
+from dfnet_tpu_torch.models.nerf_vanilla import VanillaNeRFConfig
 from dfnet_tpu_torch.models.nerfw import NeRFWConfig
 
 N_RAW = 9      # fine raw rows: rgb 0:3, sigma 3, t-rgb 4:7, t-sigma 7, t-beta 8
@@ -156,19 +164,21 @@ def _pad_cols(w: torch.Tensor, cols: int) -> torch.Tensor:
     return Fn.pad(w, (0, cols - w.shape[1]))
 
 
-def _pack_trunk(params: Dict, cfg: NeRFWConfig, spec: KernelSpec) -> Dict:
+def _pack_trunk(params: Dict, cfg, spec: KernelSpec, prefix: str = "xyz_") -> Dict:
+    """The trunk's layers `<prefix>0..D-1`; the skip layer's input rows are
+    [x0 | h], x0 first, in both nets."""
     if cfg.in_xyz != 6 * spec.F + 3:
         raise ValueError("kernel PE expects include_input with 6F+3 features")
     f32 = torch.float32
-    p = {"w0": _pad_cols(params["xyz_0"]["w"].to(f32).t(), spec.K0)}
+    p = {"w0": _pad_cols(params[f"{prefix}0"]["w"].to(f32).t(), spec.K0)}
     for i in range(1, cfg.D):
-        w = params[f"xyz_{i}"]["w"].to(f32)
+        w = params[f"{prefix}{i}"]["w"].to(f32)
         if i == spec.skip:
             p[f"wx{i}"] = _pad_cols(w[:cfg.in_xyz].t(), spec.K0)
             p[f"wh{i}"] = w[cfg.in_xyz:].t()
         else:
             p[f"w{i}"] = w.t()
-    p["b_trunk"] = torch.stack([params[f"xyz_{i}"]["b"].to(f32)
+    p["b_trunk"] = torch.stack([params[f"{prefix}{i}"]["b"].to(f32)
                                 for i in range(cfg.D)])
     return p
 
@@ -270,6 +280,67 @@ def per_ray_row(params: Dict, cfg: NeRFWConfig, dir_emb, a_emb, t_emb):
     dp = dp.expand(n, dp.shape[1])
     tp = tp.expand(n, tp.shape[1])
     return torch.cat([dp, tp], -1).float().contiguous()
+
+
+def vanilla_skip(cfg: VanillaNeRFConfig) -> Optional[int]:
+    """The kernels' skip layer of a vanilla net, -1 for none, or None where
+    no kernel can run its skips. The vanilla net concatenates [x0 | h] AFTER
+    layer s's ReLU (s in cfg.skips), so layer s + 1 reads it where NeRF-W's
+    layer s would; a concatenation after the last layer would feed the
+    heads, and a second one a second skip layer, which the kernels lack."""
+    live = [s for s in cfg.skips if s < cfg.D]
+    if not live:
+        return -1
+    if len(live) > 1 or live[0] + 1 >= cfg.D:
+        return None
+    return live[0] + 1
+
+
+def vanilla_spec(cfg: VanillaNeRFConfig, emb: Embedder, static: bool = True) -> KernelSpec:
+    """The static spec of a vanilla net (fine_raw_t, raw_bwd_t), or its
+    sigma-only spec (coarse_sigma_t)."""
+    skip = vanilla_skip(cfg)
+    if skip is None:
+        raise ValueError(f"no kernel runs the vanilla skips {cfg.skips} at D={cfg.D}")
+    return KernelSpec(D=cfg.D, W=cfg.W, skip=skip, F=emb.num_freqs, fine=False,
+                      static=static)
+
+
+def pack_vanilla_t(params: Dict, cfg: VanillaNeRFConfig, emb: Embedder,
+                   sigma_only: bool = False) -> Dict:
+    """A vanilla net (models/nerf_vanilla.py, with viewdirs) on the static
+    pack: its trunk, feature folded into the point half of views_0 (w_dt
+    is (W/2, W), exact as pack_static_t's fold), rgb over d and alpha over h
+    as the heads; with sigma_only, the trunk and alpha for coarse_sigma_t.
+    Reference semantics: nerf_apply_rays."""
+    if not cfg.use_viewdirs:
+        raise ValueError("the kernels run a vanilla net with viewdirs only")
+    spec = vanilla_spec(cfg, emb, static=not sigma_only)
+    parts = _pack_trunk(params, cfg, spec, prefix="pts_")
+    f32 = torch.float32
+    alpha = params["alpha"]["w"].to(f32)[:, 0]
+    if sigma_only:
+        parts["w_sigma"] = alpha
+        parts["b_sigma"] = params["alpha"]["b"]
+        return _finish(parts, spec, emb, alpha.device)
+    W, half = cfg.W, cfg.W // 2
+    w_feat = params["feature"]["w"].to(f32)
+    wv_h = params["views_0"]["w"].to(f32)[:W]                    # (W, half)
+    parts["w_dt"] = (w_feat @ wv_h).t()
+    parts["b_dt"] = params["feature"]["b"].to(f32) @ wv_h
+    heads = w_feat.new_zeros((N_STATIC, W))
+    heads[0:3, :half] = params["rgb"]["w"].to(f32).t()
+    heads[3] = alpha                                              # over h
+    parts["w_heads"] = heads
+    parts["b_heads"] = torch.cat([params["rgb"]["b"], params["alpha"]["b"]]).to(f32)
+    return _finish(parts, spec, emb, alpha.device)
+
+
+def per_ray_row_vanilla(params: Dict, cfg: VanillaNeRFConfig, dir_emb):
+    """(N, W/2) float32: the direction half of a vanilla net's views_0,
+    bias folded in, for its static pack."""
+    dp = dir_emb @ params["views_0"]["w"][cfg.W:] + params["views_0"]["b"]
+    return dp.float().contiguous()
 
 
 # ---------------------------------------------------------------------------

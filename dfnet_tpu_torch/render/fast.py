@@ -23,6 +23,12 @@ Importance-sampling modes (as in the JAX package):
     lindisp=False; otherwise the call takes the two-kernel path, as in the
     JAX package.
 
+The vanilla NeRF (NeRFH=False) renders on the exact union only: the coarse
+net's sigma sweep places the samples (coarse_sigma_t on its sigma-only
+pack), the fine net's sweep is fine_raw_t on its static pack, whose
+channel-major rows volume.composite_vanilla composites. The other
+schedules keep it on the plain renderer (`fast_path_supported`).
+
 A caller that renders many views with one set of weights passes a
 PackCache: the weights are packed for the kernels once per weight version
 (a miss) and reused on every later view (a hit), counted in PACKS.
@@ -36,7 +42,7 @@ PackCache lookup) and, per chunk, `dfnet.render.placement`, `.sample`,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as Fn
@@ -52,8 +58,11 @@ from dfnet_tpu_torch.render.sampling import (
 from dfnet_tpu_torch.render.volume import (
     NeRFHModel,
     RenderSettings,
+    VanillaNeRFModel,
     chunked_rays,
+    composite_vanilla,
     gather_image,
+    vanilla_weights,
 )
 from dfnet_tpu_torch.utils.profiling import annotate
 
@@ -62,8 +71,8 @@ LANES = 128     # the JAX package's lane width; kept for its support gates
 
 @dataclass(frozen=True)
 class FastNeRFH:
-    """Kernel-packed NeRF-H for fused test-time rendering."""
-    model: NeRFHModel
+    """Kernel-packed NeRF-H (or vanilla pair) for fused test-time rendering."""
+    model: Union[NeRFHModel, VanillaNeRFModel]
     packed_coarse: Dict
     packed_fine: Dict
     params: Dict                      # original params (per-ray partials)
@@ -73,8 +82,17 @@ class FastNeRFH:
     spec_proposal: Optional[nk.KernelSpec] = None
 
     @classmethod
-    def pack(cls, params: Dict, model: NeRFHModel,
+    def pack(cls, params: Dict, model: Union[NeRFHModel, VanillaNeRFModel],
              use_proposal: bool = True) -> "FastNeRFH":
+        if isinstance(model, VanillaNeRFModel):
+            cc, cf, emb = model.cfg_coarse, model.cfg_fine, model.embed_xyz
+            return cls(model=model,
+                       packed_coarse=nk.pack_vanilla_t(params["coarse"], cc, emb,
+                                                       sigma_only=True),
+                       packed_fine=nk.pack_vanilla_t(params["fine"], cf, emb),
+                       params=params,
+                       spec_coarse=nk.vanilla_spec(cc, emb, static=False),
+                       spec_fine=nk.vanilla_spec(cf, emb))
         packed_p = spec_p = None
         if (use_proposal and model.cfg_proposal is not None
                 and "proposal" in params):
@@ -291,6 +309,10 @@ def render_rays_fast(fast: FastNeRFH, rays_o, rays_d, hist,
             "schedule always renders N_samples+N_importance samples")
     rays_o = rays_o.float().contiguous()
     rays_d = rays_d.float().contiguous()
+    if isinstance(fast.model, VanillaNeRFModel):
+        if cull_q > 0.0 or not exact_union or mono or fuse_composite:
+            raise ValueError("the kernels render a vanilla NeRF on the exact union only")
+        return _render_rays_fast_vanilla(fast, rays_o, rays_d, settings)
     S = n_place or settings.N_samples
     # the sampling kernel builds a linear-in-z uniform grid only: under
     # lindisp (or without a proposal, or for the exact union) the call
@@ -362,6 +384,35 @@ def render_rays_fast(fast: FastNeRFH, rays_o, rays_d, hist,
         return composite_soa(raw9, z_all, white_bkgd=settings.white_bkgd)
 
 
+def _render_rays_fast_vanilla(fast: FastNeRFH, rays_o, rays_d,
+                              settings: RenderSettings) -> Dict:
+    """render_rays_vanilla at test settings through the kernels: the coarse
+    net's sigma sweep over the uniform grid places the samples, the fine
+    net's static sweep runs over the sorted exact union."""
+    n, S = rays_o.shape[0], settings.N_samples
+    with annotate("dfnet.render.placement"):
+        sig_pre = nk.coarse_sigma_t(fast.packed_coarse, rays_o, rays_d, fast.spec_coarse, S,
+                                    float(settings.near), float(settings.far),
+                                    settings.lindisp)
+        near = torch.full((n, 1), settings.near, device=rays_o.device)
+        far = torch.full((n, 1), settings.far, device=rays_o.device)
+        z_vals = stratified_z_vals(near, far, S, None, settings.lindisp, 0.0)
+        weights = vanilla_weights(sig_pre, z_vals, rays_d)
+    with annotate("dfnet.render.sample"):
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = sample_pdf(z_mid, weights[..., 1:-1], settings.N_importance, None,
+                               det=True)
+        z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values.contiguous()
+    with annotate("dfnet.render.fine"):
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        dpt = nk.per_ray_row_vanilla(fast.params["fine"], fast.model.cfg_fine,
+                                     fast.model.embed_dir(viewdirs))
+        raw4 = nk.fine_raw_t(fast.packed_fine, rays_o, rays_d, z_all, dpt, fast.spec_fine)
+    with annotate("dfnet.render.composite"):
+        return composite_vanilla(raw4.permute(1, 2, 0), z_all, rays_d,
+                                 white_bkgd=settings.white_bkgd)
+
+
 def cull_schedule_kwargs(cfg) -> Dict:
     """cfg.render_* flags as render kwargs; n_fine/n_place are forwarded
     only when the culled sampler is on (the exact-union schedule's fine
@@ -376,20 +427,44 @@ def cull_schedule_kwargs(cfg) -> Dict:
 def _tileable(S: int, target: int = 2048) -> bool:
     """The JAX package's tile_geometry(S) succeeds: some ray count R <=
     min(LANES, target // S) makes R*S a multiple of 128. Kept as a gate so
-    both packages route the same settings to the same renderer."""
+    that both packages route the same NeRF-H settings to the same renderer
+    (the JAX package renders a vanilla NeRF on its plain renderer only)."""
     R = max(1, min(LANES, target // S))
     return any((r * S) % 128 == 0 for r in range(R, 0, -1))
 
 
-def fast_path_supported(model, settings: RenderSettings) -> bool:
-    """Whether the kernels can serve this model/settings combo. The gates
-    are the JAX package's, less its CPU and Mosaic-width gates, plus the
-    Hopper kernels' own: every width a multiple of 32 (16-row WMMA tiles
-    over the W/2-wide transient layers).
+def _width_ok(w: int) -> bool:
+    """A net width the kernels take: a multiple of 32, and up to 2*LANES
+    in LANES steps."""
+    return not (w % 32 or (w > LANES and (w % LANES != 0 or w > 2 * LANES)))
+
+
+def vanilla_nets_supported(model: VanillaNeRFModel) -> bool:
+    """Whether the kernels can run both nets of a vanilla pair: viewdirs,
+    skips they can place (nk.vanilla_skip), widths as NeRF-H's and an
+    unwindowed PE that includes its input."""
+    F = model.embed_xyz.num_freqs
+    if model.embed_xyz.windowed or model.embed_dir.windowed or 6 * F + 3 > LANES:
+        return False
+    return all(c.use_viewdirs and nk.vanilla_skip(c) is not None and _width_ok(c.W)
+               and c.in_xyz == 6 * F + 3 for c in (model.cfg_coarse, model.cfg_fine))
+
+
+def fast_path_supported(model, settings: RenderSettings, cull_q: float = 0.0) -> bool:
+    """Whether the kernels can serve this model/settings combo. The NeRF-H
+    gates are the JAX package's, less its CPU and Mosaic-width gates, plus
+    the Hopper kernels' own: every width a multiple of 32 (16-row WMMA
+    tiles over the W/2-wide transient layers). A vanilla pair takes the
+    kernels on the exact-union schedule (cull_q 0) where
+    vanilla_nets_supported; the JAX package renders it plainly.
 
     The kernels always run bf16 matmuls with float32 accumulation
     regardless of --precision; pass --fast_render false for the plain
     float32 renderer."""
+    if isinstance(model, VanillaNeRFModel):
+        return (settings.N_importance > 0 and cull_q <= 0.0 and vanilla_nets_supported(model)
+                and _tileable(settings.N_samples)
+                and _tileable(settings.N_samples + settings.N_importance))
     if not isinstance(model, NeRFHModel):
         return False
     if model.cfg_fine.out_ch != 3 or settings.N_importance <= 0:
@@ -399,9 +474,8 @@ def fast_path_supported(model, settings: RenderSettings) -> bool:
         widths.append(model.cfg_proposal.W)
     if any(w % 32 for w in widths):
         return False
-    for w in (model.cfg_coarse.W, model.cfg_fine.W):
-        if w > LANES and (w % LANES != 0 or w > 2 * LANES):
-            return False
+    if not (_width_ok(model.cfg_coarse.W) and _width_ok(model.cfg_fine.W)):
+        return False
     if model.embed_xyz.windowed or model.embed_dir.windowed:
         return False
     if 6 * model.embed_xyz.num_freqs + 3 > LANES:
@@ -411,8 +485,8 @@ def fast_path_supported(model, settings: RenderSettings) -> bool:
 
 
 @torch.no_grad()
-def render_image_fast(params: Dict, model: NeRFHModel, c2w, hist,
-                      H: int, W: int, focal: float,
+def render_image_fast(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel], c2w,
+                      hist, H: int, W: int, focal: float,
                       settings: RenderSettings, chunk: int = 1024 * 8,
                       exact_union: bool = True, use_proposal: bool = True,
                       cull_q: float = 0.0, n_fine: Optional[int] = None,
@@ -435,7 +509,8 @@ def render_image_fast(params: Dict, model: NeRFHModel, c2w, hist,
         align = kernel_ray_align(model, settings, n_fine, n_place)
         chunk = max(chunk // align, 1) * align
         n, ro, rd = chunked_rays(H, W, focal, c2w, chunk, mesh)
-        hist_b = hist[None]            # (1, HB): one histogram for every ray
+        # (1, HB): one histogram for every ray; a vanilla pair reads none
+        hist_b = None if hist is None else hist[None]
         outs = [render_rays_fast(fast, o, d, hist_b, settings,
                                  exact_union=exact_union, cull_q=cull_q,
                                  n_fine=n_fine, n_place=n_place,

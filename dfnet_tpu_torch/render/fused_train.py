@@ -6,7 +6,10 @@ Both train-time MLP sweeps run as `fine_raw_t` under `RawSweep`, a
 coarse sweep on the static pack (S = N_samples, rows [rgb, sigma]) and the
 fine sweep on the NeRF-W pack (S = N_samples + N_importance). Sampling,
 compositing, the loss and Adam stay plain PyTorch, operating on the
-kernels' channel-major (rows, N, S) output.
+kernels' channel-major (rows, N, S) output. A vanilla NeRF (NeRFH=False)
+runs both of its nets on their static vanilla packs
+(`render_rays_train_vanilla`), the fine one over the sorted union, and
+volume.composite_vanilla composites their rows.
 
 Gradient contract (the JAX package's): cotangents reach the MLP params
 (through the differentiable packs) and the per-ray conditioning rows
@@ -35,10 +38,17 @@ from dfnet_tpu_torch.render.fast import (
     LANES,
     _shifted_cumprod_lanes,
     _tileable,
+    _width_ok,
     sample_pdf_culled,
+    vanilla_nets_supported,
 )
 from dfnet_tpu_torch.render.sampling import gaussian, sample_pdf, stratified_z_vals
-from dfnet_tpu_torch.render.volume import NeRFHModel, RenderSettings
+from dfnet_tpu_torch.render.volume import (
+    NeRFHModel,
+    RenderSettings,
+    VanillaNeRFModel,
+    composite_vanilla,
+)
 from dfnet_tpu_torch.utils.profiling import annotate
 
 
@@ -149,16 +159,24 @@ def fused_train_supported(model, settings: RenderSettings, n_rand: int) -> bool:
     package's envelope (transient NeRF-H, out_ch 3, widths up to 2*LANES
     in LANES steps, no windowed PE, tileable sample counts) less its CPU
     and Mosaic-width gates, plus the Hopper kernels' own: every width a
-    multiple of 32. On the CPU the wrappers run their plain versions."""
+    multiple of 32. A vanilla pair takes the kernels where its nets do
+    (fast.vanilla_nets_supported) at tileable N_samples and union, and not
+    under the culled schedule. On the CPU the wrappers run their plain
+    versions."""
+    if isinstance(model, VanillaNeRFModel):
+        S = settings.N_samples
+        return (settings.N_importance > 0 and settings.train_cull_q <= 0.0
+                and vanilla_nets_supported(model)
+                and n_rand % train_ray_align(settings) == 0
+                and _tileable(S) and _tileable(S + settings.N_importance))
     if not isinstance(model, NeRFHModel):
         return False
     if model.cfg_fine.out_ch != 3 or settings.N_importance <= 0:
         return False
     if not model.cfg_fine.encode_transient:
         return False
-    for w in (model.cfg_coarse.W, model.cfg_fine.W):
-        if w % 32 or (w > LANES and (w % LANES != 0 or w > 2 * LANES)):
-            return False
+    if not (_width_ok(model.cfg_coarse.W) and _width_ok(model.cfg_fine.W)):
+        return False
     if model.embed_xyz.windowed or model.embed_dir.windowed:
         return False
     if 6 * model.embed_xyz.num_freqs + 3 > LANES:
@@ -179,7 +197,10 @@ def render_rays_train_fused(params: Dict, model: NeRFHModel, rays_o, rays_d,
     models): the same sampling, composites and output keys, with both MLP
     sweeps running as kernels under RawSweep. `gen` (on the rays' device)
     draws, in order, the stratified jitter, the coarse sigma noise and the
-    importance samples, as volume.render_rays does."""
+    importance samples, as volume.render_rays does. A vanilla pair goes to
+    render_rays_train_vanilla (it reads no hist)."""
+    if isinstance(model, VanillaNeRFModel):
+        return render_rays_train_vanilla(params, model, rays_o, rays_d, settings, gen)
     rays_o = rays_o.float().contiguous()
     rays_d = rays_d.float().contiguous()
     n = rays_o.shape[0]
@@ -246,4 +267,51 @@ def render_rays_train_fused(params: Dict, model: NeRFHModel, rays_o, rays_d,
                transient_sigmas=comp_f["transient_sigmas"],
                z_std=torch.std(z_samples, -1, correction=0),
                z_vals=z_vals, z_all=z_all, weights_fine=comp_f["weights"])
+    return out
+
+
+def render_rays_train_vanilla(params: Dict, model: VanillaNeRFModel, rays_o, rays_d,
+                              settings: RenderSettings,
+                              gen: Optional[torch.Generator] = None) -> Dict:
+    """Drop-in for volume.render_rays_vanilla at train time: the same
+    draws from `gen` in its order (the jitter, the coarse sigma noise, the
+    importance samples, the fine sigma noise), composites and output keys,
+    with each net's sweep as fine_raw_t on its static vanilla pack under
+    RawSweep: the coarse at N_samples, the fine over the sorted union of
+    N_samples + N_importance."""
+    rays_o = rays_o.float().contiguous()
+    rays_d = rays_d.float().contiguous()
+    n, S, dev = rays_o.shape[0], settings.N_samples, rays_o.device
+    near = torch.full((n, 1), settings.near, device=dev)
+    far = torch.full((n, 1), settings.far, device=dev)
+    z_vals = stratified_z_vals(near, far, S, gen, settings.lindisp,
+                               settings.perturb).contiguous()
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    dir_emb = model.embed_dir(viewdirs)
+
+    def sweep(net: str, cfg, z):
+        with annotate("dfnet.train.pack"):
+            packed = nk.pack_vanilla_t(params[net], cfg, model.embed_xyz)
+            spec = nk.vanilla_spec(cfg, model.embed_xyz)
+        with annotate(f"dfnet.train.{net}"):
+            dpt = nk.per_ray_row_vanilla(params[net], cfg, dir_emb)
+            raw = raw_sweep(packed, rays_o, rays_d, z, dpt, spec)
+            noise = None
+            if settings.raw_noise_std > 0.0 and gen is not None:
+                noise = settings.raw_noise_std * gaussian(z.shape, gen, dev)
+        with annotate("dfnet.train.composite"):
+            return composite_vanilla(raw.permute(1, 2, 0), z, rays_d, noise,
+                                     settings.white_bkgd)
+
+    comp_c = sweep("coarse", model.cfg_coarse, z_vals)
+    with annotate("dfnet.train.sample"):
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = sample_pdf(z_mid, comp_c["weights"][..., 1:-1], settings.N_importance,
+                               gen, det=(settings.perturb == 0.0))
+        z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
+        z_all = z_all.detach().contiguous()
+    comp_f = sweep("fine", model.cfg_fine, z_all)
+    out = {k: comp_f[k] for k in ("rgb", "disp", "acc", "depth")}
+    out.update(rgb0=comp_c["rgb"], disp0=comp_c["disp"], acc0=comp_c["acc"],
+               z_std=torch.std(z_samples, -1, correction=0))
     return out

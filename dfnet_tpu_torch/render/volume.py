@@ -10,9 +10,10 @@ differentiable in the params and the rays.
 
 The vanilla NeRF (NeRFH=False) has its own compositing (composite_vanilla:
 1e10 terminal delta, deltas scaled by |rays_d|) and pipeline
-(render_rays_vanilla); the full-image renders dispatch on the model. No
-kernel serves it: the kernel gates take NeRFHModel only, as in the JAX
-package.
+(render_rays_vanilla); the full-image renders dispatch on the model. The
+kernel gates admit it too (the JAX package's take NeRFHModel only): its
+stage-1 step and test render then take render/fused_train.py and
+render/fast.py, and this is its plain route.
 """
 
 from __future__ import annotations
@@ -226,24 +227,28 @@ def render_rays(params: Dict, model: NeRFHModel, rays_o: torch.Tensor,
     return out
 
 
-def composite_vanilla(raw, z_vals, rays_d, raw_noise: Optional[torch.Tensor] = None,
-                      white_bkgd: bool = False) -> Dict:
-    """Original-NeRF compositing of raw outputs (N, S, >=4): 1e10 terminal
-    delta, deltas scaled by |rays_d|, sigmoid rgb, relu(sigma + noise),
+def vanilla_weights(sigma, z_vals, rays_d, raw_noise: Optional[torch.Tensor] = None):
+    """Original-NeRF weights (N, S) of raw sigma (N, S) at z (N, S): 1e10
+    terminal delta, deltas scaled by |rays_d|, relu(sigma + noise),
     1 - alpha + 1e-10 in the transmittance product."""
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, 1e10 * torch.ones_like(dists[..., :1])], -1)
     dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
-    rgb = torch.sigmoid(raw[..., :3])
-    sig = raw[..., 3]
     if raw_noise is not None:
-        sig = sig + raw_noise
-    alpha = 1.0 - torch.exp(-torch.relu(sig) * dists)
+        sigma = sigma + raw_noise
+    alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
     trans = torch.cumprod(
         torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1), -1
     )[..., :-1]
-    weights = alpha * trans
-    rgb_map = (weights[..., None] * rgb).sum(-2)
+    return alpha * trans
+
+
+def composite_vanilla(raw, z_vals, rays_d, raw_noise: Optional[torch.Tensor] = None,
+                      white_bkgd: bool = False) -> Dict:
+    """Original-NeRF compositing of raw outputs (N, S, >=4): sigmoid rgb
+    over vanilla_weights."""
+    weights = vanilla_weights(raw[..., 3], z_vals, rays_d, raw_noise)
+    rgb_map = (weights[..., None] * torch.sigmoid(raw[..., :3])).sum(-2)
     depth = (weights * z_vals).sum(-1)
     acc = weights.sum(-1)
     disp = 1.0 / torch.clamp(depth / torch.clamp(acc, min=1e-10), min=1e-10)

@@ -14,10 +14,11 @@ path: render at 1/tinyscale, then bicubic-upsample to full size.
     differentiable in the pose (stage 3). The kernels' train path returns
     no cotangents for the rays, so pose gradients never go through them.
 
-A vanilla NeRF (NeRFH=False) renders through the plain renderer only
-(render_image dispatches on the model; the kernels serve NeRF-H alone, as
-in the JAX package). Where the JAX package fails on one, a `.tar` load
-and render_fn_batch, the port raises NotImplementedError instead.
+A vanilla NeRF (NeRFH=False) renders through the plain renderer here
+(render_image dispatches on the model), as in the JAX package, though the
+stage-1 trainer's step and test render take the kernels for it
+(training/nerf_trainer.py). Where the JAX package fails on one, a `.tar`
+load and render_fn_batch, the port raises NotImplementedError instead.
 
 With a mesh (parallel/mesh.py) every render splits its ray axis across
 the ranks, as the JAX package's does: each rank renders its slice (the
@@ -86,8 +87,8 @@ class FrozenNeRF:
         self.rh, self.rw = (int(self.H // ts), int(self.W // ts)) if tiny else (self.H, self.W)
         self.rf = self.focal / ts if tiny else self.focal
         self.chunk = min(cfg.chunk, self.rh * self.rw)
-        self.uses_fast_render = bool(cfg.fast_render and fast_mod.fast_path_supported(
-            model, self.settings))
+        self.uses_fast_render = bool(cfg.fast_render and isinstance(model, NeRFHModel)
+                                     and fast_mod.fast_path_supported(model, self.settings))
         self.packs = fast_mod.PackCache()
 
     @property

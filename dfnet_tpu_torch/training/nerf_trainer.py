@@ -10,8 +10,11 @@ advances once per epoch (the reference's schedule). Under the culled
 schedule (--train_cull_q) with --train_cull_warmup E, epochs below E train
 at the reference schedule's sampling first (`NeRFTrainer.schedule`), each
 schedule on the kernel step where it can serve. Splits render at test
-settings through render/fast.py or the plain renderer. Checkpoints hold
-the params and the Adam state in the JAX package's layout.
+settings through render/fast.py or the plain renderer. A vanilla NeRF
+(NeRFH=False) takes the same two routes, each where its gate admits it
+(`fused_train_supported`, `fast_path_supported`); `ROUTES` counts the
+steps and views each route served. Checkpoints hold the params and the
+Adam state in the JAX package's layout.
 
 Under a torch.profiler trace (utils/profiling.py::annotate) a step is the
 region `dfnet.train.step`, holding `dfnet.train.draw`, the kernel render's
@@ -85,6 +88,16 @@ from dfnet_tpu_torch.training.checkpoints import (
 from dfnet_tpu_torch.utils.profiling import annotate
 
 
+# stage-1 steps (stage1_loss) and the trainer's rendered views by route:
+# the kernels or the plain renderer (reset_routes() zeroes)
+ROUTES = {"kernel_steps": 0, "plain_steps": 0, "kernel_views": 0, "plain_views": 0}
+
+
+def reset_routes() -> None:
+    for k in ROUTES:
+        ROUTES[k] = 0
+
+
 def exp_decayed_lr(cfg: Config, global_step: int) -> float:
     return cfg.lrate * (0.1 ** (global_step / (cfg.lrate_decay * 1000.0)))
 
@@ -123,18 +136,20 @@ def stage1_loss(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel], cfg: C
                 gen: Optional[torch.Generator], fused: bool,
                 epoch: Optional[float] = None):
     """(loss, fine-rgb MSE) of one ray batch: the NeRF-W loss of the
-    kernel (`fused`) or plain render (render_rays_vanilla for a vanilla
-    model: no beta, so c_l + f_l), plus the proposal sampler's bound
-    loss against the fine weights (which carry no gradient, so only the
-    proposal learns from it). `epoch` sets the frequency window of the
-    plain render's embedders under --reduce_embedding 2 and is dropped
-    otherwise, as in the reference; the kernel render never windows
-    (fused_train_supported refuses a windowed embedder)."""
+    kernel (`fused`) or plain render (for a vanilla model
+    render_rays_train_vanilla or render_rays_vanilla: no beta, so c_l +
+    f_l), plus the proposal sampler's bound loss against the fine weights
+    (which carry no gradient, so only the proposal learns from it).
+    `epoch` sets the frequency window of the plain render's embedders
+    under --reduce_embedding 2 and is dropped otherwise, as in the
+    reference; the kernel render never windows (fused_train_supported
+    refuses a windowed embedder)."""
     ep = epoch if cfg.reduce_embedding == 2 else None
-    if isinstance(model, VanillaNeRFModel):
-        out = render_rays_vanilla(params, model, rays_o, rays_d, settings, gen, epoch=ep)
-    elif fused:
+    ROUTES["kernel_steps" if fused else "plain_steps"] += 1
+    if fused:
         out = render_rays_train_fused(params, model, rays_o, rays_d, hist, settings, gen)
+    elif isinstance(model, VanillaNeRFModel):
+        out = render_rays_vanilla(params, model, rays_o, rays_d, settings, gen, epoch=ep)
     else:
         out = render_rays(params, model, rays_o, rays_d, hist, settings, gen, epoch=ep)
     loss = sum(nerfw_loss(out, target).values())
@@ -308,20 +323,23 @@ class NeRFTrainer:
         mesh = self.mesh
         # under a mesh the kernels serve whenever they can, as in the JAX
         # package (its render_image_sharded takes no fast_render flag)
+        cull = fast_mod.cull_schedule_kwargs(cfg)
         self.uses_fast_render = ((cfg.fast_render or mesh is not None)
                                  and cfg.reduce_embedding != 2
                                  and fast_mod.fast_path_supported(
-                                     model, self.settings_test))
+                                     model, self.settings_test, cull["cull_q"]))
         if self.uses_fast_render:
             packs = fast_mod.PackCache()
 
             def render_one(params, pose, hist, epoch):
+                ROUTES["kernel_views"] += 1
                 return fast_mod.render_image_fast(
                     params, model, pose, hist, eh, ew, ef, self.settings_test,
-                    chunk=chunk, use_proposal=cfg.proposal_render,
-                    **fast_mod.cull_schedule_kwargs(cfg), packs=packs, mesh=mesh)
+                    chunk=chunk, use_proposal=cfg.proposal_render, **cull, packs=packs,
+                    mesh=mesh)
         else:
             def render_one(params, pose, hist, epoch):
+                ROUTES["plain_views"] += 1
                 ep = epoch if cfg.reduce_embedding == 2 else None
                 return render_image(params, model, pose, hist, eh, ew, ef,
                                     self.settings_test, chunk=chunk, epoch=ep,

@@ -229,10 +229,28 @@ def test_vanilla_render_agreement_runs_its_stages():
 
 
 def test_kernel_gates_refuse_the_vanilla_model():
+    """The kernel gates admit this pair (tests/test_torch_vanilla_kernel_route.py
+    holds that route) and refuse it outside the kernels' envelope, where the
+    plain route above serves it: a skip into the heads, two skips, no
+    viewdirs, a width off 32, a windowed PE, the culled schedules."""
     _, tm, _ = _models()
     st = vol.RenderSettings(N_samples=16, N_importance=16)
-    assert not fast.fast_path_supported(tm, st.test())
-    assert not fused_train.fused_train_supported(tm, st, 256)
+    assert fast.fast_path_supported(tm, st.test())
+    assert fused_train.fused_train_supported(tm, st, 256)
+    cfgs = [dict(skips=(3,)), dict(skips=(1, 2)), dict(use_viewdirs=False), dict(W=48)]
+    for kw in cfgs:
+        c = nv.VanillaNeRFConfig(**{**KW, **kw})
+        m = vol.VanillaNeRFModel(c, c, tm.embed_xyz, tm.embed_dir)
+        assert not fast.fast_path_supported(m, st.test()), kw
+        assert not fused_train.fused_train_supported(m, st, 256), kw
+    windowed = vol.VanillaNeRFModel(tm.cfg_coarse, tm.cfg_fine, get_embedder(10, 0, 2, 100),
+                                    tm.embed_dir)
+    assert not fast.fast_path_supported(windowed, st.test())
+    assert not fused_train.fused_train_supported(windowed, st, 256)
+    assert not fast.fast_path_supported(tm, st.test(), cull_q=2e-3)
+    culled = vol.RenderSettings(N_samples=16, N_importance=16, train_cull_q=2e-3,
+                                train_fine_total=16)
+    assert not fused_train.fused_train_supported(tm, culled, 256)
 
 
 def test_render_image_dispatches_on_the_model():
@@ -258,9 +276,11 @@ def test_render_image_dispatches_on_the_model():
 # each coarse leaf within 1.3e-5 on both sides), so the fine leaves are held
 # at 1e-2 of scale, about three times JAX's own float32 error.
 STEP_FINE_GRAD = 1e-2
+# the plain route, pinned by the flags (the gates admit this pair)
 STEP = ["--dataset_type", "synthetic", "--netdepth", "4", "--netwidth", "32",
         "--netdepth_fine", "4", "--netwidth_fine", "32", "--N_samples", "16",
-        "--N_importance", "16", "--N_rand", "256", "--perturb", "0"]
+        "--N_importance", "16", "--N_rand", "256", "--perturb", "0",
+        "--fused_train", "false", "--fast_render", "false"]
 
 
 def test_stage1_train_step_matches_jax():

@@ -1,0 +1,292 @@
+"""The original NeRF (NeRFH=False) on the kernel route, on the CPU (the
+wrappers' plain versions, which repeat the kernels' arithmetic): its packs,
+its train step and its test render against the plain float32 reference of
+the paper (benchmark/reference_nerf.py) and against the port's own plain
+route (render/volume.py::render_rays_vanilla), and the trainer's choice of
+route.
+
+Seeded random weights at D=8, W=64, skips (4,), 16 + 32 samples, 48 rays
+(`small`). The kernels round every matmul operand to bf16 and accumulate in
+float32, so their route sits a bf16 rounding away from the float32
+reference; each tolerance below is set between the largest gap of the
+kernel route over the seeds and the smallest gap of the same reference
+computed at fp8 e4m3 operands (reference_nerfh.Matmul("fp8"), one
+precision step below bf16), which `test_the_fp8_control_fails_them`
+holds: loss relative gap, largest gradient norm gap over the leaf's or the
+median leaf's reference norm (the train cell's measure), and the render's
+largest rgb gap and mean disparity gap over the mean disparity.
+"""
+
+import statistics
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark import reference_nerf as ref
+from benchmark.reference_nerfh import Matmul
+from benchmark.scene import tree_of
+from dfnet_tpu_torch.config import parse_args
+from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
+from dfnet_tpu_torch.models import nerf_vanilla as nv
+from dfnet_tpu_torch.models.embedder import get_embedder
+from dfnet_tpu_torch.models.losses import nerfw_loss
+from dfnet_tpu_torch.ops import nerf_kernels as nk
+from dfnet_tpu_torch.render import fast, fused_train
+from dfnet_tpu_torch.render import volume as vol
+from dfnet_tpu_torch.training import nerf_trainer
+from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer, named_leaves
+
+NEAR, FAR = 0.5, 3.5
+D, W, S, I, N = 8, 64, 16, 32, 48
+SEEDS = (0, 1, 2)
+# Largest gap of the kernel route over seeds 0-7 (smallest of the fp8
+# control): loss 1.1e-4 (3.7e-6), gradient 0.148 (0.315), rgb 2.1e-4
+# (1.5e-3), disparity 2.3e-3 (1.7e-3). Loss, gradient and rgb take about
+# twice the kernels' largest; the fp8 control fails the gradient and the
+# rgb on every seed (its loss gap happens to be small where the rounding
+# errors cancel). The disparity of a random net turns on the sign of the
+# fine sigma at the 1e10 terminal interval, where a bf16 rounding of sigma
+# can flip a ray: it is held at twice the kernels' largest and fails no
+# control. The kernel route stands as far from the port's own plain route
+# (which is within 2e-5 of the reference), so one set of tolerances serves.
+TOL = {"loss": 3e-4, "grad": 0.2, "rgb": 6e-4, "disp": 5e-3}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def small(seed: int):
+    """(model, params, rays_o, rays_d, target, settings) at the small size."""
+    ex, ed = get_embedder(10), get_embedder(4)
+    cfg = nv.VanillaNeRFConfig(D=D, W=W, in_xyz=ex.out_dim, in_dir=ed.out_dim, output_ch=5)
+    model = vol.VanillaNeRFModel(cfg, cfg, ex, ed)
+    g = torch.Generator().manual_seed(seed)
+    params = {"coarse": nv.init_nerf_params(g, cfg), "fine": nv.init_nerf_params(g, cfg)}
+    rng = np.random.default_rng(seed)
+    ro = torch.tensor((rng.normal(size=(N, 3)) * 0.2 + [0.0, 0.0, 2.0]).astype(np.float32))
+    rd = torch.tensor((rng.normal(size=(N, 3)) * 0.3).astype(np.float32))
+    rd[:, 2] = -1.0
+    target = torch.rand((N, 3), generator=g)
+    st = vol.RenderSettings(N_samples=S, N_importance=I, near=NEAR, far=FAR,
+                            white_bkgd=True, perturb=1.0)
+    return model, params, ro, rd, target, st
+
+
+REF = dict(N_samples=S, N_importance=I, near=NEAR, far=FAR, white_bkgd=True, multires=10,
+           multires_views=4, skips=[4], netdepth=D, netdepth_fine=D)
+
+
+def _trainable(params):
+    leaves = named_leaves(params)
+    ps = [t.clone().requires_grad_(True) for _, t in leaves]
+    return [p for p, _ in leaves], ps, tree_of(zip([p for p, _ in leaves], ps))
+
+
+def port_step(render, case, seed: int):
+    """(loss, {leaf: gradient}) of the port's render `render` and the
+    trainer's loss, c_l + f_l, with its draws from a generator of `seed`."""
+    model, params, ro, rd, target, st = case
+    paths, ps, tree = _trainable(params)
+    out = render(tree, model, ro, rd, st, torch.Generator().manual_seed(seed))
+    loss = sum(nerfw_loss(out, target).values())
+    return float(loss.detach()), dict(zip(paths, torch.autograd.grad(loss, ps)))
+
+
+def ref_step(case, seed: int, precision: str = "fp32"):
+    """The reference's (loss, {leaf: gradient}) on the same draws: the
+    stratified jitter, then the importance samples, from `seed`."""
+    model, params, ro, rd, target, st = case
+    paths, ps, tree = _trainable(params)
+    gen = torch.Generator().manual_seed(seed)
+    u_s = torch.rand((N, S), generator=gen)
+    u_i = torch.rand((N, I), generator=gen)
+    loss, grads, _ = ref.loss_and_grads(ps, tree, REF, ro, rd, target, u_s, u_i,
+                                        Matmul(precision))
+    return loss, dict(zip(paths, grads))
+
+
+def kernel_render(tree, model, ro, rd, st, gen):
+    return fused_train.render_rays_train_fused(tree, model, ro, rd, None, st, gen)
+
+
+def plain_render(tree, model, ro, rd, st, gen):
+    return vol.render_rays_vanilla(tree, model, ro, rd, st, gen)
+
+
+def step_gaps(got, want):
+    """Loss relative gap, and the largest gradient norm gap over the leaf's
+    or the median leaf's norm."""
+    (lg, gg), (lw, gw) = got, want
+    med = statistics.median(float(v.norm()) for v in gw.values())
+    return {"loss": abs(lg - lw) / abs(lw),
+            "grad": max(float((gg[k] - gw[k]).norm()) / max(float(gw[k].norm()), med)
+                        for k in gw)}
+
+
+def render_gaps(got, want):
+    return {"rgb": float((got["rgb"] - want["rgb"]).abs().max()),
+            "disp": float((got["disp"] - want["disp"]).abs().mean() / want["disp"].mean())}
+
+
+def fast_render(case):
+    model, params, ro, rd, _, st = case
+    return fast.render_rays_fast(fast.FastNeRFH.pack(params, model), ro, rd, None, st.test())
+
+
+# ------------------------------------------------------------------ packs
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+def test_pack_vanilla_t_round_trips(sigma_only):
+    model, params, *_ = small(0)
+    cfg, F = model.cfg_fine, model.embed_xyz.num_freqs
+    p = params["fine"]
+    packed = nk.pack_vanilla_t(p, cfg, model.embed_xyz, sigma_only=sigma_only)
+    spec = nk.vanilla_spec(cfg, model.embed_xyz, static=not sigma_only)
+    assert spec == nk.KernelSpec(D=D, W=W, skip=5, F=F, fine=False, static=not sigma_only)
+    v = {k: t.float() for k, t in nk.unpack(packed, spec).items()}
+    bf = lambda t: t.bfloat16().float()
+    k0 = 6 * F + 3
+    assert torch.equal(v["w0"][:, :k0], bf(p["pts_0"]["w"].t()))
+    assert not v["w0"][:, k0:].any()
+    assert torch.equal(v["wx5"][:, :k0], bf(p["pts_5"]["w"][:k0].t()))
+    assert torch.equal(v["wh5"], bf(p["pts_5"]["w"][k0:].t()))
+    for i in (1, 2, 3, 4, 6, 7):
+        assert torch.equal(v[f"w{i}"], bf(p[f"pts_{i}"]["w"].t()))
+    assert torch.equal(v["b_trunk"], torch.stack([p[f"pts_{i}"]["b"] for i in range(D)]))
+    if sigma_only:
+        assert torch.equal(v["w_sigma"], bf(p["alpha"]["w"][:, 0]))
+        assert torch.equal(v["b_sigma"], p["alpha"]["b"])
+        return
+    wv = p["views_0"]["w"][:W]
+    assert torch.equal(v["w_dt"], bf((p["feature"]["w"] @ wv).t()))
+    assert torch.allclose(v["b_dt"], p["feature"]["b"] @ wv)
+    assert torch.equal(v["w_heads"][0:3, :W // 2], bf(p["rgb"]["w"].t()))
+    assert not v["w_heads"][0:3, W // 2:].any()
+    assert torch.equal(v["w_heads"][3], bf(p["alpha"]["w"][:, 0]))
+    assert torch.equal(v["b_heads"], torch.cat([p["rgb"]["b"], p["alpha"]["b"]]))
+
+
+def test_the_skip_moves_one_layer():
+    """The vanilla net concatenates after layer s's ReLU, so the kernels'
+    skip layer is s + 1; one into the heads, or two, no kernel runs."""
+    def skip(**kw):
+        return nk.vanilla_skip(nv.VanillaNeRFConfig(**kw))
+    assert skip(D=8, skips=(4,)) == 5 and skip(D=4, skips=(4,)) == -1
+    assert skip(D=8, skips=(7,)) is None and skip(D=8, skips=(2, 4)) is None
+
+
+# ------------------------------------------------------------------ the step
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_kernel_step_matches_the_reference(seed):
+    case = small(seed)
+    gaps = step_gaps(port_step(kernel_render, case, seed + 10), ref_step(case, seed + 10))
+    assert all(gaps[k] <= TOL[k] for k in gaps), gaps
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_kernel_render_matches_the_reference(seed):
+    case = small(seed)
+    model, params, ro, rd, _, st = case
+    want = ref.render_view(params, REF, ro, rd, Matmul("fp32"))
+    gaps = render_gaps(fast_render(case), want)
+    assert all(gaps[k] <= TOL[k] for k in gaps), gaps
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_the_fp8_control_fails_them(seed):
+    """The reference at fp8 operands is out of at least one tolerance of
+    the step and one of the render."""
+    case = small(seed)
+    want = ref_step(case, seed + 10)
+    got = step_gaps(ref_step(case, seed + 10, "fp8"), want)
+    assert any(got[k] > TOL[k] for k in got), got
+    model, params, ro, rd, _, st = case
+    r = render_gaps(ref.render_view(params, REF, ro, rd, Matmul("fp8")),
+                    ref.render_view(params, REF, ro, rd, Matmul("fp32")))
+    assert any(r[k] > TOL[k] for k in r), r
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_kernel_route_matches_the_plain_route(seed):
+    """The kernel step against render_rays_vanilla: the same keys, the same
+    draws (the stratified z, hence rgb0's samples), the loss and gradients,
+    and the test render against render_image's per-ray pipeline."""
+    case = small(seed)
+    model, params, ro, rd, target, st = case
+    with torch.no_grad():
+        k = kernel_render(params, model, ro, rd, st, torch.Generator().manual_seed(seed))
+        p = plain_render(params, model, ro, rd, st, torch.Generator().manual_seed(seed))
+    assert sorted(k) == sorted(p)
+    gaps = step_gaps(port_step(kernel_render, case, seed), port_step(plain_render, case, seed))
+    assert all(gaps[k] <= TOL[k] for k in gaps), gaps
+    with torch.no_grad():
+        plain = vol.render_rays_vanilla(params, model, ro, rd, st.test())
+    r = render_gaps(fast_render(case), plain)
+    assert all(r[k] <= TOL[k] for k in r), r
+
+
+# ------------------------------------------------------------------ the trainer
+
+TRAIN = ["--dataset_type", "synthetic", "--netdepth", "8", "--netwidth", "64",
+         "--netdepth_fine", "8", "--netwidth_fine", "64", "--N_samples", "16",
+         "--N_importance", "32", "--N_rand", "64", "--white_bkgd", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return make_synthetic_scene(n_train=2, n_val=1, H=12, W=16, focal=15.0, seed=0)
+
+
+def _calls(monkeypatch):
+    """Calls of each sweep wrapper (the wrappers count CUDA launches only)."""
+    n = {k: 0 for k in ("coarse_sigma_t", "fine_raw_t", "raw_bwd_t", "fine_composite_t",
+                        "proposal_z_rows")}
+    for name in n:
+        orig = getattr(nk, name)
+
+        def counted(*a, _name=name, _orig=orig, **kw):
+            n[_name] += 1
+            return _orig(*a, **kw)
+        monkeypatch.setattr(nk, name, counted)
+    return n
+
+
+def test_the_trainer_takes_the_kernel_route(scene, monkeypatch):
+    """Default flags: a step launches fine_raw_t and raw_bwd_t twice each and
+    nothing else, and render_split renders through render_image_fast."""
+    tr = NeRFTrainer(parse_args(TRAIN, stage="nerf"), scene)
+    assert isinstance(tr.model, vol.VanillaNeRFModel)
+    assert tr.uses_fused_train and tr.uses_fast_render
+    calls = _calls(monkeypatch)
+    nerf_trainer.reset_routes()
+    tr.train_step(0, 5e-4)
+    assert calls == {"coarse_sigma_t": 0, "fine_raw_t": 2, "raw_bwd_t": 2,
+                     "fine_composite_t": 0, "proposal_z_rows": 0}
+    psnr = tr.render_split(scene.val)
+    assert np.isfinite(psnr) and calls["coarse_sigma_t"] == 1 and calls["fine_raw_t"] == 3
+    assert nerf_trainer.ROUTES == {"kernel_steps": 1, "plain_steps": 0, "kernel_views": 1,
+                                   "plain_views": 0}
+
+
+@pytest.mark.parametrize("flags", [["--fused_train", "false", "--fast_render", "false"],
+                                   ["--train_cull_q", "2e-3", "--train_fine_total", "16",
+                                    "--render_cull_q", "2e-3", "--render_fine_total", "16",
+                                    "--render_place_samples", "16"]],
+                         ids=["flags", "culled"])
+def test_the_flags_and_the_culled_schedules_keep_the_plain_route(scene, flags, monkeypatch):
+    tr = NeRFTrainer(parse_args(TRAIN + flags, stage="nerf"), scene)
+    assert not tr.uses_fused_train and not tr.uses_fast_render
+    calls = _calls(monkeypatch)
+    nerf_trainer.reset_routes()
+    tr.train_step(0, 5e-4)
+    tr.render_split(scene.val)
+    assert not any(calls.values())
+    assert nerf_trainer.ROUTES == {"kernel_steps": 0, "plain_steps": 1, "kernel_views": 0,
+                                   "plain_views": 1}
