@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (dfnet_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent TREE]
+
+With --parent (another checkout's root, e.g. the parent commit's `git
+archive` in a gitignored directory), every raw_bwd_t case also times TREE's
+three launches on the same inputs, in turns with this tree's (parent, this,
+this, parent; `parent_ms` beside each launch's ms in the case's `parts`).
 
 Phases (any failure exits non-zero):
   1. build   — compile every kernel of dfnet_tpu_torch/ops/csrc with nvcc
@@ -569,18 +574,38 @@ def dpt_through_stash(a, k):
     return ok, info
 
 
+# --parent TREE: that tree's raw_bwd library, which bwd_parts times beside this tree's
+PARENT = {}
+
+
 def bwd_parts(a, k):
-    """raw_bwd_t's three launches timed one by one with CUDA events; the
-    stash's bytes, read from the tensor; and the yardstick: one
-    torch.matmul per problem of bwd_problems over the same stash views,
-    summed (bf16 operands, float32 sums), which the port never calls."""
+    """raw_bwd_t's three launches timed one by one with CUDA events (and,
+    with --parent, the parent's beside them, in turns: the median of two
+    readings each); the stash's bytes, read from the tensor; and the
+    yardstick: one torch.matmul per problem of bwd_problems over the same
+    stash views, summed (bf16 operands, float32 sums), which the port never
+    calls."""
     import torch
 
+    from dfnet_tpu_torch.ops import build
     from dfnet_tpu_torch.ops import nerf_kernels as nk
     from dfnet_tpu_torch.utils.timing import cuda_ms
 
     launches, _, stash = nk.raw_bwd_launches(*a, **k)
-    out = {f"{n}_ms": cuda_ms(fn, reps=5) for n, fn in launches}
+    if PARENT:
+        ours = build._loaded["raw_bwd"]
+        ms = {t: {n: [] for n, _ in launches} for t in ("parent", "this")}
+        for t in ("parent", "this", "this", "parent"):
+            with build._lock:     # the launches look the library up on every call
+                build._loaded["raw_bwd"] = PARENT["raw_bwd"] if t == "parent" else ours
+            for n, fn in launches:
+                ms[t][n].append(cuda_ms(fn, reps=5))
+        with build._lock:
+            build._loaded["raw_bwd"] = ours
+        out = {f"{n}_ms": float(np.median(v)) for n, v in ms["this"].items()}
+        out["parent_ms"] = {n: float(np.median(v)) for n, v in ms["parent"].items()}
+    else:
+        out = {f"{n}_ms": cuda_ms(fn, reps=5) for n, fn in launches}
     N, S = a[3].shape
     pairs = [(G, A) for G, A, _ in nk.bwd_problem_views(stash, a[-1], N, S)]
     out["wgrad_matmul_ms"] = cuda_ms(lambda: [torch.matmul(G.t(), A) for G, A in pairs],
@@ -3465,9 +3490,15 @@ def phase_tail(device):
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another tree's root: time its raw_bwd_t launches beside this one's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3490,6 +3521,22 @@ def main() -> int:
         for line in build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
+    if args.parent is not None:
+        # that tree's raw_bwd.cu alone, with this tree's nvcc flags: its other
+        # kernels would load a second copy of every sweep kernel's name
+        import ctypes
+
+        t0 = time.perf_counter()
+        out = build.BUILD_ROOT.parent / "parent_raw_bwd"
+        out.mkdir(parents=True, exist_ok=True)
+        lib = out / "libraw_bwd.so"
+        src = args.parent.resolve() / "dfnet_tpu_torch" / "ops" / "csrc" / "raw_bwd.cu"
+        proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+        PARENT["raw_bwd"] = ctypes.CDLL(str(lib))
+        log(f"[build] the parent's raw_bwd.cu ({args.parent}) in {time.perf_counter() - t0:.1f} s")
 
     def timed(phase, *a):
         t = time.perf_counter()

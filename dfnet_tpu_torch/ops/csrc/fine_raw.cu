@@ -20,18 +20,18 @@
 // of 32 B, once per 16-row m-tile; its heads ran on the CUDA cores with
 // 4-way bank conflicts. It ran at 3.9% of the bound. Here (the sweep is
 // sweep.cuh::fine_sweep, which fine_composite.cu runs too):
-//   - every layer goes through panel.cuh::panel_layer (the arithmetic of
-//     raw_bwd.cu's bwd_stash, without its stash stores): each layer's
+//   - every layer goes through panel.cuh::panel_layer: each layer's
 //     weights stream through two double-buffered cp.async panels, so a
 //     weight is read from L2 once a tile, into conflict-free shared rows.
-//     The k order of every sum is bwd_stash's, so the trunk, dt and
-//     transient activations (hence the ReLU masks the backward recomputes
-//     under RawSweep) are bit-equal to the ones it stashes;
+//     raw_bwd.cu's bwd_stash recomputes the trunk, dt and transient
+//     activations (hence the ReLU masks of the backward under RawSweep) on
+//     warpgroup MMA in the same k order; a card test holds its trunk
+//     activations to these bit for bit;
 //   - 64-point tiles with 2 output fragments a warp at W <= 128 (two
 //     blocks an SM, at most 128 registers), 4 at W = 256 (one block);
 //   - the PE takes one sincosf a (point, frequency, axis), full range
-//     reduction as before (panel.cuh::build_pe_sincos, which bwd_stash
-//     runs too);
+//     reduction as before (panel.cuh::build_pe_sincos, whose arithmetic
+//     bwd_stash repeats);
 //   - the heads are tensor-core products: one 16-column fragment a 16-point
 //     m-tile sums sigma over h, rgb over d and the transient rows over t3
 //     against a 16-row head matrix staged in shared memory (zero outside

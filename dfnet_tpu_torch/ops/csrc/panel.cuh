@@ -1,9 +1,10 @@
 // Weight panels (sm_90a): one dense layer's product over a tile of points,
 // the layer's weights streamed through shared memory, and the tile's PE.
-// Shared by sweep.cuh (the forward sweep of fine_raw.cu, fine_composite.cu
-// and coarse_sigma.cu) and raw_bwd.cu (bwd_stash: the forward recompute and
-// the cotangent chain), so the forward and the backward compute the same x0
-// and trunk activations, hence the same ReLU masks, by construction.
+// The forward sweep's layer code (sweep.cuh: fine_raw.cu, fine_composite.cu,
+// coarse_sigma.cu and proposal_z.cu). raw_bwd.cu's bwd_stash recomputes the
+// same forward on warpgroup MMA with the same k order, bias, dpt and ReLU;
+// tests/test_torch_port_gpu.py holds its trunk activations to the sweep's bit
+// for bit, so the backward's ReLU masks are the forward's.
 //
 // The whole fine net (~0.32 MB bf16 at W=128, D=8) does not fit in a
 // block's shared memory, so each layer's weights pass through two panels
@@ -17,9 +18,8 @@
 
 #include "nerf_mlp.cuh"
 
-// Internal linkage, as when this code lived in raw_bwd.cu alone (the
-// inliner then treats bwd_stash's calls as before); the including source's
-// kernels sit in the same anonymous namespace.
+// Internal linkage: the including source's kernels sit in the same
+// anonymous namespace.
 namespace {
 
 using namespace dfn;
@@ -73,8 +73,8 @@ __device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::)
 template <int N>
 __device__ inline void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// bf16 elements of one panel buffer: a forward panel (W rows of KP) or a
-// backward one (KP rows of W)
+// bf16 elements of one panel buffer: W rows of KP, or at least KP rows of W
+// (the sweeps' shared-memory layout, which ops/nerf_kernels.py mirrors)
 __host__ __device__ inline size_t panel_elems(int W) {
   const size_t fwd = (size_t)W * (KP + PAD), bwd = (size_t)KP * (W + PAD);
   return fwd > bwd ? fwd : bwd;
@@ -118,37 +118,24 @@ __device__ inline void build_pe_sincos(const Dims& dm, const Tile& t, const floa
   __syncthreads();
 }
 
-// Where an epilogue writes besides shared memory: stash + (p0 + row) * ld
-// + col + n, bf16.
-struct StashOut {
-  bf16* base;
-  int ld;
-};
-
-// A layer's product over a tile, its weights streamed through two panels.
-// BWD == false: out = relu(in1 . W1^T (+ in2 . W2^T) + bias (+ dpt[ray])),
-//   W_s (Nout, K_s) row-major; a panel is W_s[:, k0:k0+64] (Nout rows).
-// BWD == true: out = bf16((act > 0) * (in1 . W1 (+ ex_g[row] ex_w[col]))),
-//   W1 (K1, Nout) row-major (the layer's own matrix, out x in); a panel is
-//   W1[k0:k0+64, :].
-// in*: shared bf16 (64 rows, ld*); out: shared bf16 (64 rows, ldo), also
-// written to the stash when STASH. 8 warps: 2 along the points, two 16-row
-// fragments each; 4 along the outputs, NJ 16-column fragments each
-// (columns 16 (wn + 4 j)), so Nout <= 64 NJ. Ends with __syncthreads().
-template <bool BWD, int NJ, bool STASH = true>
+// A layer's product over a tile, its weights streamed through two panels:
+// out = relu(in1 . W1^T (+ in2 . W2^T) + bias (+ dpt[ray])), W_s (Nout, K_s)
+// row-major; a panel is W_s[:, k0:k0+64] (Nout rows). in*: shared bf16 (64
+// rows, ld*); out: shared bf16 (64 rows, ldo). 8 warps: 2 along the points,
+// two 16-row fragments each; 4 along the outputs, NJ 16-column fragments
+// each (columns 16 (wn + 4 j)), so Nout <= 64 NJ. Ends with __syncthreads().
+template <int NJ>
 __device__ void panel_layer(const bf16* in1, int ld1, int K1, const bf16* W1,
                             const bf16* in2, int ld2, int K2, const bf16* W2,
                             int Nout, bf16* pan0, bf16* pan1, const float* bias,
-                            const float* dpt, int ld_dpt, const int* row_ray,
-                            const bf16* act, int ld_act, const float* ex_g, int ex_ld,
-                            const bf16* ex_w, bf16* out, int ldo, StashOut so,
-                            float* scratch) {
+                            const float* dpt, int ld_dpt, const int* row_ray, bf16* out,
+                            int ldo, float* scratch) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp & 1, wn = warp >> 1;
   const int nt = Nout / 16;
   const int np1 = (K1 + KP - 1) / KP;
   const int np = np1 + (in2 != nullptr ? (K2 + KP - 1) / KP : 0);
-  const int ldp = BWD ? Nout + PAD : KP + PAD;
+  const int ldp = KP + PAD;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NJ];
 #pragma unroll
@@ -162,18 +149,10 @@ __device__ void panel_layer(const bf16* in1, int ld1, int K1, const bf16* W1,
     const int K = second ? K2 : K1;
     const int k0 = (second ? p - np1 : p) * KP;
     const int kp = min(KP, K - k0);
-    if (!BWD) {
-      const int cpr = kp / 8;
-      for (int i = threadIdx.x; i < Nout * cpr; i += blockDim.x) {
-        const int r = i / cpr, c = (i % cpr) * 8;
-        cp_async16(dst + (size_t)r * ldp + c, Wm + (size_t)r * K + k0 + c);
-      }
-    } else {
-      const int cpr = Nout / 8;
-      for (int i = threadIdx.x; i < kp * cpr; i += blockDim.x) {
-        const int r = i / cpr, c = (i % cpr) * 8;
-        cp_async16(dst + (size_t)r * ldp + c, Wm + (size_t)(k0 + r) * Nout + c);
-      }
+    const int cpr = kp / 8;
+    for (int i = threadIdx.x; i < Nout * cpr; i += blockDim.x) {
+      const int r = i / cpr, c = (i % cpr) * 8;
+      cp_async16(dst + (size_t)r * ldp + c, Wm + (size_t)r * K + k0 + c);
     }
     cp_commit();
   };
@@ -203,17 +182,10 @@ __device__ void panel_layer(const bf16* in1, int ld1, int K1, const bf16* W1,
       for (int j = 0; j < NJ; ++j) {
         const int ni = wn + 4 * j;
         if (ni < nt) {
-          if (BWD) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, cur + (size_t)kk * ldp + ni * 16, ldp);
-            wmma::mma_sync(acc[0][j], fa[0], fb, acc[0][j]);
-            wmma::mma_sync(acc[1][j], fa[1], fb, acc[1][j]);
-          } else {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fb, cur + (size_t)(ni * 16) * ldp + kk, ldp);
-            wmma::mma_sync(acc[0][j], fa[0], fb, acc[0][j]);
-            wmma::mma_sync(acc[1][j], fa[1], fb, acc[1][j]);
-          }
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+          wmma::load_matrix_sync(fb, cur + (size_t)(ni * 16) * ldp + kk, ldp);
+          wmma::mma_sync(acc[0][j], fa[0], fb, acc[0][j]);
+          wmma::mma_sync(acc[1][j], fa[1], fb, acc[1][j]);
         }
       }
     }
@@ -238,31 +210,18 @@ __device__ void panel_layer(const bf16* in1, int ld1, int K1, const bf16* W1,
       v[0] = s0.x; v[1] = s0.y; v[2] = s0.z; v[3] = s0.w;
       v[4] = s1.x; v[5] = s1.y; v[6] = s1.z; v[7] = s1.w;
       __align__(16) bf16 o[8];
-      if (!BWD) {
-        const int ray = dpt != nullptr ? row_ray[row] : -1;
-        float bv[8], dv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        load8(bias + col, bv);
-        if (ray >= 0) load8(dpt + (size_t)ray * ld_dpt + col, dv);
+      const int ray = dpt != nullptr ? row_ray[row] : -1;
+      float bv[8], dv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      load8(bias + col, bv);
+      if (ray >= 0) load8(dpt + (size_t)ray * ld_dpt + col, dv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float x = v[e] + bv[e];
-          if (ray >= 0) x += dv[e];
-          o[e] = __float2bfloat16(relu_nan(x));
-        }
-      } else {
-        __align__(16) bf16 m[8];
-        *reinterpret_cast<uint4*>(m) =
-            *reinterpret_cast<const uint4*>(act + (size_t)row * ld_act + col);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float x = v[e];
-          if (ex_g != nullptr) x += ex_g[row * ex_ld] * bf(ex_w[col + e]);
-          o[e] = __float2bfloat16(bf(m[e]) > 0.f ? x : 0.f);
-        }
+      for (int e = 0; e < 8; ++e) {
+        float x = v[e] + bv[e];
+        if (ray >= 0) x += dv[e];
+        o[e] = __float2bfloat16(relu_nan(x));
       }
-      const uint4 ov = *reinterpret_cast<const uint4*>(o);
-      *reinterpret_cast<uint4*>(out + (size_t)row * ldo + col) = ov;
-      if (STASH) *reinterpret_cast<uint4*>(so.base + (size_t)row * so.ld + col) = ov;
+      *reinterpret_cast<uint4*>(out + (size_t)row * ldo + col) =
+          *reinterpret_cast<const uint4*>(o);
       __syncwarp();
     }
   }

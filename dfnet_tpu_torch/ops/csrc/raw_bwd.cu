@@ -12,26 +12,16 @@
 // before it becomes a matmul operand; every product sums in float32;
 // weight grads leave as bf16. No atomics: two calls give the same bits.
 //
-// What bounds it on the H100: operations (~3 forward passes of bf16 flop
-// a point), but only if the weight-grad sums stay in registers over many
-// points and the weights reach the tensor cores from shared memory. The
-// TPU kernel kept a 1024-point tile's activations in VMEM and summed weight
-// grads across its sequential grid; a block here has 227 KB and runs in
-// parallel with the others. So the work is split:
+// The TPU kernel kept a 1024-point tile's activations in VMEM and summed
+// weight grads across its sequential grid; a block here has 227 KB and runs
+// in parallel with the others. So the work is split:
 //
-//   1. bwd_stash (per 64-point tile, one tile a block): recomputes the
-//      forward exactly as fine_raw_t does (the same panel.cuh PE and layer
-//      code, so the same ReLU masks), runs the cotangent chain (heads,
+//   1. bwd_stash: recomputes the forward (fine_raw_t's arithmetic: the same
+//      PE, k order, bias, dpt and ReLU), runs the cotangent chain (heads,
 //      transient chain, dt layer plus the sigma head's rank-1 share, trunk)
 //      and writes each weight matrix's bf16 input activation A_l and masked
 //      bf16 output cotangent G_l, and the bf16 g, to a point-major stash in
-//      device memory (16-byte stores). A block holds only x0, two activation
-//      tiles and two weight panels: each layer's weights stream through the
-//      panels in 64-wide slices (panel.cuh::panel_layer, which fine_raw.cu
-//      shares: cp.async, double-buffered, padded rows, so a WMMA fragment
-//      read is conflict-free), ~94 KB at W=128 (two blocks,
-//      16 warps an SM) and ~164 KB at W=256 (one block). Masks for the input
-//      grads read A_{l-1} back from the stash, L2-hot.
+//      device memory (16-byte stores).
 //   2. bwd_wgrad: a grouped split-K GEMM, dW_l = G_l^T A_l and db_l = sum G_l,
 //      over a table of problems built by ops/nerf_kernels.py::bwd_problems.
 //      One block per (chunk of points, problem, 128x128 output tile, so a
@@ -48,14 +38,78 @@
 // Stash: one bf16 [Pp, width] region per activation and cotangent (Pp = P
 // rounded up to 64; a dead row's G is zero), in the order of
 // ops/nerf_kernels.py::bwd_regions; the wrapper passes the region offsets.
+//
+// What bounds bwd_stash on the H100: a point costs ~2 forward passes of bf16
+// products (the recompute and the cotangent chain: ~2.0e6 flop at the
+// original NeRF's W=256, D=8 static pack, ~2.1 ns at 989 TFLOP/s) and writes
+// its stash row (~8.9 KB of bf16 there, ~2.7 ns at 3.35 TB/s): the bytes
+// bound it, just, with the operations close behind. So the products have to
+// run near the tensor cores' rate while the stores stream out beside them.
+//
+// Design (mlp_stack.cu's warpgroup scheme; the first version ran each layer
+// as WMMA 16x16x16 on fragments read from shared memory, its weights
+// streamed through two cp.async panels with two __syncthreads() a panel,
+// one 64-point tile a block, at ~7% of the bound):
+//   - persistent blocks, at most one an SM: a producer warpgroup and ncw
+//     consumer warpgroups, each consumer owning 64 points (a stash tile) of
+//     the block's 64 ncw. ncw is at most 4 at W <= 128, 2 above (the 64 x W
+//     sums take W/2 registers a thread); the launch takes fewer where the
+//     points would leave SMs idle (launch_stash: the fewest rounds of blocks,
+//     a block costing its consumers plus one);
+//   - the weights arrive by TMA in panels 64 deep (one 64 x 64 box per 64
+//     outputs under the 128-byte swizzle) into a ring of mbarrier-guarded
+//     stages, which one producer thread keeps full across layers and tiles,
+//     walking the same table of products (build_ops) as the consumers.
+//     Every consumer of the block reads each panel. A forward panel is
+//     K-major (an (out, in) matrix's rows are its outputs); a backward
+//     panel, 64 rows of the same row-major matrix read as G . W, is MN-major
+//     and enters wgmma with imm-trans-b = 1, so no transposed copy is made;
+//   - a consumer's activations stay in shared memory as wgmma's A operand
+//     (K-major, 128-byte swizzle): x0 (K0 columns), X (W) and, for the fine
+//     pack, Y (W/2, the transient chain). Every product is wgmma m64nNk16 at
+//     N = the kernel's padded width (one accumulator shape a kernel: with
+//     several, ptxas serialised every product and spilled the sums), the
+//     sums in registers, then an in-place epilogue: forward bias, the
+//     per-ray dpt row (dt layer) and max.NaN ReLU; backward the mask of the
+//     stashed activation > 0 (read back from the stash, L2-hot) and the sigma
+//     head's rank-1 term (dt layer); then fence.proxy.async and a named
+//     barrier of the consumer's 128 threads. X holds h_i in place through
+//     the trunk, then [d | t0]; t1..t3 run in Y; the cotangents follow the
+//     same tiles backwards (g_t3..g_t1 in Y, G_dt = [g_d | g_t0] in X, then
+//     g_h in place in X);
+//   - the epilogue's global reads go out together before its stores, the
+//     first chunk beside the last group of products, and whatever it reads
+//     of shared memory it reads once: every shared-memory asm is a compiler
+//     barrier to memory, behind which each read and load would otherwise
+//     wait in turn;
+//   - a tile's bf16 rows leave for the stash as 16-byte stores read back
+//     from the swizzled tile, deferred into the next product until its first
+//     group of products is in flight, so the stores overlap the tensor
+//     cores;
+//   - the heads (at most 9 rows) stay on the CUDA cores, 8 columns a thread;
+//   - setmaxnreg gives the producer 40 registers and the consumers the rest.
+// The same k order, bias, dpt and ReLU as fine_raw_t's sweep (panel.cuh), so
+// the trunk activations, and the whole stash, are fine_raw_t's and the
+// first version's bit for bit (tests/test_torch_port_gpu.py).
+// Measured and not kept (PERF.md, Findings): the stash written by TMA
+// stores from the tiles (5% faster at W = 128, 13-16% slower at W = 256,
+// where those stores share the SM's TMA unit with the weight loads and the
+// kernel spilled); every epilogue read issued before the products (spills
+// at W = 256); three consumers at W <= 128 (7% faster at 18,432 points, 6%
+// slower at 196,608).
+// Shared memory a block (stash_layout): ncw x (x0 + X + Y tiles, 8 KB per
+// 64 columns) + stages x W x 128 B + ncw x 5.25 KB (g, points, z, rays), and
+// the product table (static). W=256: fine 2 x 56 KB + 3 stages of 32 KB;
+// static 2 x 40 KB + 4 stages; W=128 fine: 4 x 32 KB + 4 stages of 16 KB.
 
+#include "hopper.cuh"
 #include "panel.cuh"
 
 using namespace dfn;
 
 namespace {
 
-constexpr int BTP = 64;      // points per stash tile
+constexpr int BTP = 64;      // points per stash tile (a consumer's rows, wgmma's M)
 constexpr int G_RAW = 16;    // columns of the bf16 g region
 constexpr int MAX_REGIONS = 2 * 16 + 10;
 
@@ -78,188 +132,659 @@ __host__ __device__ inline int R_GRAW(int D) { return 9 + 2 * D; }
 // 1. bwd_stash
 // ---------------------------------------------------------------------------
 
-struct StashLayout {
-  size_t x0, hA, hB, pan0, pan1, scratch, g16, pts, rz, ray, total;
+constexpr int WGT = 128;                 // threads a warpgroup
+constexpr int SWZ = 128;                 // bytes of a swizzled row
+constexpr int PBYTES = BTP * SWZ;        // 64 rows x 64 bf16: a tile's block, a TMA box
+constexpr int SMEM_LIMIT = 232448;       // shared bytes a block may have, static and dynamic
+constexpr int ALIGN = 1024;              // the 128-byte swizzle repeats every 8 rows
+constexpr int MAX_STAGES = 8;
+constexpr int PRODUCER_REGS = 40;
+constexpr int MAX_MATS = 16 + 5;         // w0, D - 1 trunk layers (one of them wx, wh), dt, 3 tr
+constexpr int MAX_OPS = 2 * 16 + 7;
+// a consumer's g (float, G_RAW a row), points, z and rays
+constexpr int MISC_BYTES = BTP * (G_RAW + 3 + 1 + 1) * 4;
+enum { T_X0, T_X, T_Y };                 // a consumer's activation tiles
+
+struct Maps {
+  CUtensorMap m[MAX_MATS];               // the weight matrices, in packed order
 };
 
-__host__ __device__ inline StashLayout stash_layout(int K0, int W) {
+// One product of the walk (build_ops): out = epilogue(sum over the input
+// segments of A_s . B_s), A_s columns [a_col, a_col + k) of a tile, B_s the
+// matrix `map` (forward: (out, in) read K-major; bwd: (out, in) read as
+// G . W, MN-major). n outputs land in columns [out_col, out_col + n) of
+// out_tile and in the stash region st_reg from column st_col.
+struct Op {
+  int nseg, map[2], a_tile[2], a_col[2], k[2];
+  int n, bwd, out_tile, out_col;
+  int bias, dpt;                         // forward: bias offset (floats); add dpt[ray]
+  int mask_reg, mask_col, rank1;         // backward: the mask's region; the sigma head's term
+  int st_reg, st_col;
+};
+
+__host__ __device__ inline int mat_of(const Dims& dm, int i) {   // trunk layer i >= 1
+  return i + (dm.skip >= 1 && i > dm.skip ? 1 : 0);
+}
+
+// The products of a tile in order: the forward recompute (*nfwd of them),
+// then, after the heads, the cotangent chain. Returns their count.
+__device__ inline int build_ops(const Dims& dm, int stat, Op* ops, int* nfwd) {
+  const int W = dm.W, half = W / 2, D = dm.D, Wd = stat ? half : W;
+  const Offsets of = offsets(dm, stat);
+  const int m_dt = D + (dm.skip >= 1 ? 1 : 0), m_tr = m_dt + 1;
+  int n = 0;
+  auto add = [&](int map, int tile, int col, int k, int N, int bwd, int out_tile, int out_col,
+                 int st_reg, int st_col) -> Op& {
+    Op& o = ops[n++];
+    o = Op{};
+    o.nseg = 1;
+    o.map[0] = map;
+    o.a_tile[0] = tile;
+    o.a_col[0] = col;
+    o.k[0] = k;
+    o.n = N;
+    o.bwd = bwd;
+    o.out_tile = out_tile;
+    o.out_col = out_col;
+    o.bias = -1;
+    o.mask_reg = -1;
+    o.st_reg = st_reg;
+    o.st_col = st_col;
+    return o;
+  };
+  add(0, T_X0, 0, dm.K0, W, 0, T_X, 0, R_H(0), 0).bias = 0;
+  for (int i = 1; i < D; ++i) {
+    const int m = mat_of(dm, i);
+    Op& o = i == dm.skip ? add(m, T_X0, 0, dm.K0, W, 0, T_X, 0, R_H(i), 0)
+                         : add(m, T_X, 0, W, W, 0, T_X, 0, R_H(i), 0);
+    if (i == dm.skip) {    // [x0 | h]: x0's products first, as panel_layer
+      o.nseg = 2;
+      o.map[1] = m + 1;
+      o.a_tile[1] = T_X;
+      o.a_col[1] = 0;
+      o.k[1] = W;
+    }
+    o.bias = i * W;
+  }
+  Op& dt = add(m_dt, T_X, 0, W, Wd, 0, T_X, 0, R_DT0(D), 0);
+  dt.bias = of.b_dt;
+  dt.dpt = 1;
+  if (!stat)
+    for (int q = 0; q < 3; ++q)   // t1 over t0 (X's second half), t2, t3 in Y
+      add(m_tr + q, q == 0 ? T_X : T_Y, q == 0 ? half : 0, half, half, 0, T_Y, 0, R_T(D, q + 1),
+          0).bias = of.b_tr + q * half;
+  *nfwd = n;
+  if (!stat)
+    for (int q = 2; q >= 0; --q) {   // g_t2, g_t1 in Y; g_t0 into X's second half
+      Op& o = add(m_tr + q, T_Y, 0, half, half, 1, q == 0 ? T_X : T_Y, q == 0 ? half : 0,
+                  q == 0 ? R_GDT(D) : R_GT(D, q), q == 0 ? half : 0);
+      o.mask_reg = q == 0 ? R_DT0(D) : R_T(D, q);
+      o.mask_col = q == 0 ? half : 0;
+    }
+  Op& gdt = add(m_dt, T_X, 0, Wd, W, 1, T_X, 0, R_GH(D, D - 1), 0);
+  gdt.mask_reg = R_H(D - 1);
+  gdt.rank1 = 1;
+  for (int i = D - 1; i >= 1; --i)
+    add(mat_of(dm, i) + (i == dm.skip ? 1 : 0), T_X, 0, W, W, 1, T_X, 0, R_GH(D, i - 1), 0)
+        .mask_reg = R_H(i - 1);
+  return n;
+}
+
+// Byte offsets of the dynamic shared memory from its 1024-aligned base.
+struct StashLayout {
+  int kx, kw, ky;              // 64-column blocks of a consumer's x0, X and Y tiles
+  int tile_bytes, stage_bytes, ring, misc, bars, total;
+};
+
+__host__ __device__ inline StashLayout stash_layout(int K0, int W, int stat, int ncw,
+                                                    int stages, int WP) {
   StashLayout L;
-  const size_t b = sizeof(bf16);
-  size_t o = 0;
-  L.x0 = o;      o = align128(o + (size_t)BTP * (K0 + PAD) * b);
-  L.hA = o;      o = align128(o + (size_t)BTP * (W + PAD) * b);
-  L.hB = o;      o = align128(o + (size_t)BTP * (W + PAD) * b);
-  L.pan0 = o;    o = align128(o + panel_elems(W) * b);
-  L.pan1 = o;    o = align128(o + panel_elems(W) * b);
-  L.scratch = o; o = align128(o + (size_t)NWARPS * 256 * sizeof(float));
-  L.g16 = o;     o = align128(o + (size_t)BTP * G_RAW * sizeof(float));
-  L.pts = o;     o = align128(o + (size_t)BTP * 3 * sizeof(float));
-  L.rz = o;      o = align128(o + (size_t)BTP * sizeof(float));
-  L.ray = o;     o = align128(o + (size_t)BTP * sizeof(int));
-  L.total = o;
+  L.kx = (K0 + 63) / 64;
+  L.kw = (W + 63) / 64;
+  L.ky = stat ? 0 : (W / 2 + 63) / 64;
+  L.tile_bytes = (L.kx + L.kw + L.ky) * PBYTES;
+  L.stage_bytes = WP / 64 * PBYTES;              // a panel for WP outputs
+  L.ring = ncw * L.tile_bytes;
+  L.misc = L.ring + stages * L.stage_bytes;
+  L.bars = L.misc + ncw * MISC_BYTES;
+  L.total = L.bars + 2 * stages * 8 + ALIGN;     // + ALIGN: the base is rounded up
   return L;
 }
 
-// NJ: n-fragments a warp holds, 2 for W <= 128 (two blocks an SM), 4 for
-// W <= 256 (one block).
-template <int NJ>
-__global__ void __launch_bounds__(NTHREADS, NJ <= 2 ? 2 : 1)
-bwd_stash_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
-                 const float* __restrict__ z, const float* __restrict__ dpt,
-                 const float* __restrict__ g, int N, int S,
-                 const bf16* __restrict__ wts, const float* __restrict__ bias,
-                 const float* __restrict__ freqs, Dims dm, int stat,
-                 bf16* __restrict__ stash, Regions rg) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const StashLayout L = stash_layout(dm.K0, dm.W);
-  const int W = dm.W, half = W / 2, K0 = dm.K0, D = dm.D;
-  const int Wd = stat ? half : W, NR = stat ? N_STATIC : N_RAW;
-  const int ldx = K0 + PAD, ldh = W + PAD;
-  bf16* x0 = reinterpret_cast<bf16*>(smem + L.x0);
-  bf16* hA = reinterpret_cast<bf16*>(smem + L.hA);
-  bf16* hB = reinterpret_cast<bf16*>(smem + L.hB);
-  bf16* pan0 = reinterpret_cast<bf16*>(smem + L.pan0);
-  bf16* pan1 = reinterpret_cast<bf16*>(smem + L.pan1);
-  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
-  float* g16 = reinterpret_cast<float*>(smem + L.g16);
-  Tile tl{};
-  tl.x0 = x0;
-  tl.pts = reinterpret_cast<float*>(smem + L.pts);
-  tl.rz = reinterpret_cast<float*>(smem + L.rz);
-  tl.ray = reinterpret_cast<int*>(smem + L.ray);
-  tl.scratch = scratch;
+// The launch's arguments. The kernel reads them where it uses them (the
+// constant bank): the consumers' registers go to the 64 x N sums.
+struct StashArgs {
+  Maps maps;                   // the weight matrices, in packed order
+  Regions rg;
+  const float *ro, *rd, *z, *dpt, *g, *bias, *freqs;
+  const bf16* wts;
+  bf16* stash;
+  Dims dm;
+  int N, S, stat, ncw, stages;
+};
 
-  const long long P = (long long)N * S;
-  const long long p0 = (long long)blockIdx.x * BTP;
-  // region r's rows of this tile
-  auto at = [&](int r) { return StashOut{stash + rg.off[r] + p0 * rg.width[r], rg.width[r]}; };
-  auto col = [](StashOut s, int c) { return StashOut{s.base + c, s.ld}; };
+// What the block's threads share, written once by thread 0: the walk's
+// products and the geometry, read where used.
+struct Block {
+  Op ops[MAX_OPS];
+  int nfwd, nops, w_heads;     // w_heads: offset of the head matrix in the packed weights
+  uint32_t base;               // shared address of the 1024-aligned dynamic base
+  StashLayout L;
+};
+__shared__ Block blk;
+// dynamic shared bytes a block may ask for beside blk
+constexpr int DYN_LIMIT = SMEM_LIMIT - (int)((sizeof(Block) + 127) / 128 * 128);
 
-  for (int r = threadIdx.x; r < BTP; r += blockDim.x) {
-    const long long p = p0 + r;
-    tl.ray[r] = p < P ? (int)(p / S) : -1;
-    tl.rz[r] = p < P ? z[p] : 0.f;
+// The kernel of a padded width WP (128: W <= 128, 256: W <= 256).
+template <int WP>
+struct StashGeo {
+  static constexpr int NCW = WP <= 128 ? 4 : 2;   // consumer warpgroups at most
+  static constexpr int THREADS = (NCW + 1) * WGT;
+  // registers a consumer thread gets: the block's share (the launch bound,
+  // in steps of 8) less the producer's 40, over the consumers
+  static constexpr int SHARE =
+      ((65536 / THREADS / 8 * 8) * THREADS - PRODUCER_REGS * WGT) / (NCW * WGT) / 8 * 8;
+  static constexpr int CONSUMER_REGS = SHARE > 232 ? 232 : SHARE;
+};
+
+__device__ __forceinline__ void csync(int c) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(WGT) : "memory");
+}
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Byte address of element (r, col) of a tile under the 128-byte swizzle.
+__device__ __forceinline__ uint32_t tile_at(uint32_t tile, int r, int col) {
+  return tile + (col >> 6) * PBYTES + r * SWZ + ((((col & 63) >> 3) ^ (r & 7)) << 4) +
+         (col & 7) * 2;
+}
+__device__ __forceinline__ uint4 lds16(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts16(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void sts_pair(uint32_t a, float v0, float v1) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a),
+               "r"(*reinterpret_cast<const uint32_t*>(&p))
+               : "memory");
+}
+__device__ __forceinline__ void sts_bf16(uint32_t a, bf16 v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a),
+               "h"(*reinterpret_cast<const unsigned short*>(&v))
+               : "memory");
+}
+
+// bf16 halves of a 32-bit pair, as float; a float pair rounded to bf16
+__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+__device__ __forceinline__ uint32_t bf_pack(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// A generic pointer to the dynamic shared memory at shared address a.
+template <typename T>
+__device__ __forceinline__ T* sptr(uint32_t a) {
+  extern __shared__ unsigned char smem_raw[];
+  return reinterpret_cast<T*>(smem_raw + (a - smem_u32(smem_raw)));
+}
+// Consumer c's tiles, its g (float, G_RAW a row), points, z and rays.
+__device__ __forceinline__ uint32_t tile_of(int c, int id) {
+  return blk.base + c * blk.L.tile_bytes +
+         (id == T_X0 ? 0 : id == T_X ? blk.L.kx : blk.L.kx + blk.L.kw) * PBYTES;
+}
+__device__ __forceinline__ float* g16_of(int c) {
+  return sptr<float>(blk.base + blk.L.misc + c * MISC_BYTES);
+}
+__device__ __forceinline__ float* pts_of(int c) { return g16_of(c) + BTP * G_RAW; }
+__device__ __forceinline__ float* rz_of(int c) { return pts_of(c) + BTP * 3; }
+__device__ __forceinline__ int* ray_of(int c) { return reinterpret_cast<int*>(rz_of(c) + BTP); }
+__device__ __forceinline__ bf16* region(const StashArgs& a, int reg, long long row) {
+  return a.stash + a.rg.off[reg] + row * a.rg.width[reg];
+}
+
+// A consumer's place in the weight ring, and the tile columns it still owes
+// the stash: `pend` is a product's index (its output), PEND_X0 (the x0
+// tile) or -1 (none).
+constexpr int PEND_X0 = MAX_OPS;
+struct Walk {
+  int stage;
+  uint32_t phase;
+  int pend;
+};
+
+// The pending tile columns to the stash: 16-byte reads of the swizzled tile,
+// 16-byte stores, consecutive threads on consecutive chunks of a row. A
+// consumer whose 64 points start past the sweep's (a last block's spare)
+// keeps nothing.
+__device__ __forceinline__ void flush(const StashArgs& a, int c, int p0, Walk& wk) {
+  if (wk.pend < 0) return;
+  uint32_t tile;
+  int col, n, reg, scol;
+  if (wk.pend == PEND_X0) {
+    tile = tile_of(c, T_X0);
+    col = 0;
+    n = a.dm.K0;
+    reg = R_X0();
+    scol = 0;
+  } else {
+    const Op& op = blk.ops[wk.pend];
+    tile = tile_of(c, op.out_tile);
+    col = op.out_col;
+    n = op.n;
+    reg = op.st_reg;
+    scol = op.st_col;
   }
-  // g rounded to bf16: shared float copy and the stash's g region
-  const StashOut sg = at(R_GRAW(D));
-  for (int idx = threadIdx.x; idx < BTP * G_RAW; idx += blockDim.x) {
-    const int r = idx / G_RAW, c = idx % G_RAW;
-    const long long p = p0 + r;
-    const bf16 v = __float2bfloat16(p < P && c < NR ? g[(size_t)c * P + p] : 0.f);
-    g16[idx] = bf(v);
-    sg.base[(size_t)r * G_RAW + c] = v;
+  wk.pend = -1;
+  if (p0 >= a.N * a.S) return;
+  const int cpr = n / 8, w = a.rg.width[reg], t = threadIdx.x % WGT;
+  const int dr = WGT / cpr, dk = WGT % cpr;
+  bf16* dst = region(a, reg, p0) + scol;
+  int r = t / cpr, k = t % cpr;
+  for (int i = t; i < BTP * cpr; i += WGT) {
+    *reinterpret_cast<uint4*>(dst + (size_t)r * w + 8 * k) = lds16(tile_at(tile, r, col + 8 * k));
+    r += dr;
+    k += dk;
+    if (k >= cpr) {
+      k -= cpr;
+      ++r;
+    }
+  }
+}
+
+// One 16-deep k-step: A columns [col, col + 16) of the tile at `at`, the
+// k-step kk of the ring stage at pb.
+template <int NP, int BWD, int M>
+__device__ __forceinline__ void mma_step(float (&d)[M], uint32_t at, int col, uint32_t pb, int kk,
+                                         int scale) {
+  const uint64_t a = desc_sw128(at + (col >> 6) * PBYTES + (col & 63) * 2);
+  const uint64_t b = BWD ? desc_sw128_mn(pb + kk * 16 * SWZ) : desc_sw128(pb + kk * 32);
+  wgmma_bf16<NP, BWD>(d, a, b, scale);
+}
+
+// Product o of the walk for consumer c's 64 points from p0. Every product
+// runs at N = NP, the kernel's padded width: one accumulator shape a kernel,
+// as ptxas serialises the products of a kernel that holds several. The sums
+// of outputs past the product's n (whatever the ring stage holds there) are
+// never read.
+template <int NP, int BWD>
+__device__ __forceinline__ void layer(const StashArgs& a, int c, int p0, int o, Walk& wk) {
+  float d[NP / 2];
+  const int t = threadIdx.x % WGT;
+  // (locals: each shared-memory asm below is a compiler barrier to memory)
+  const uint32_t bars = blk.base + blk.L.bars, ring = blk.base + blk.L.ring;
+  const int stage_bytes = blk.L.stage_bytes, nseg = blk.ops[o].nseg;
+  int first = 1, prev = 0;
+  for (int sg = 0; sg < nseg; ++sg) {
+    const uint32_t at = tile_of(c, blk.ops[o].a_tile[sg]);
+    const int K = blk.ops[o].k[sg], c0 = blk.ops[o].a_col[sg];
+    for (int k0 = 0; k0 < K; k0 += 64) {
+      mbar_wait(bars + 8 * wk.stage, wk.phase);
+      const uint32_t pb = ring + wk.stage * stage_bytes;
+      // a fence before every panel's group, as the barrier wait and the
+      // release are divergent code between groups
+      fence_acc(d);
+      wgmma_fence();
+      if (K - k0 >= 64) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_step<NP, BWD>(d, at, c0 + k0 + 16 * kk, pb, kk, !first || kk > 0);
+      } else {
+        for (int kk = 0; kk < (K - k0) / 16; ++kk)
+          mma_step<NP, BWD>(d, at, c0 + k0 + 16 * kk, pb, kk, !first || kk > 0);
+      }
+      wgmma_commit();
+      if (!first) {
+        wgmma_wait<1>();                 // the previous panel's group is done
+        fence_acc(d);
+        if (t == 0) mbar_arrive(bars + 8 * (a.stages + prev));
+      } else {
+        flush(a, c, p0, wk);             // the last product's stash rows, beside these
+      }
+      first = 0;
+      prev = wk.stage;
+      if (++wk.stage == a.stages) {
+        wk.stage = 0;
+        wk.phase ^= 1;
+      }
+    }
+  }
+  // The epilogue's global reads go out before its stores (each store would
+  // otherwise wait on its own loads), most of them beside the last group of
+  // products: the bias (forward) or the masks, the stashed activations > 0
+  // as bf16 pairs (backward), of JC 8-column groups at a time, all of them
+  // at NP = 256; the dt layer's per-ray dpt and the sigma head's weights
+  // (one product each) SUB groups at a time.
+  constexpr int JC = NP <= 128 ? 4 : NP / 8, SUB = 4;
+  const Op& op = blk.ops[o];
+  const int row0 = 16 * (t / 32) + (t % 32) / 4, cq = 2 * (t % 4), n = op.n;
+  const int out_col = op.out_col, rank1 = op.rank1;
+  const int Wd = a.stat ? a.dm.W / 2 : a.dm.W;
+  const bool live = p0 < a.N * a.S;   // else the masks read as zero
+  int ray[2];
+  float gs[2];
+  const float2* drow[2];              // the rows' dpt, this thread's columns
+  const uint32_t* mrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ray[h] = !BWD && op.dpt ? ray_of(c)[row0 + 8 * h] : -1;
+    drow[h] = reinterpret_cast<const float2*>(a.dpt + (size_t)(ray[h] > 0 ? ray[h] : 0) * Wd + cq);
+    mrow[h] = reinterpret_cast<const uint32_t*>(
+        region(a, BWD ? op.mask_reg : 0, (long long)p0 + row0 + 8 * h) + op.mask_col + cq);
+    gs[h] = BWD && rank1 ? g16_of(c)[(row0 + 8 * h) * G_RAW + 3] : 0.f;
+  }
+  const float2* bp = reinterpret_cast<const float2*>(a.bias + op.bias + cq);
+  const __nv_bfloat162* wsp =
+      reinterpret_cast<const __nv_bfloat162*>(a.wts + blk.w_heads + 3 * a.dm.W + cq);
+  float2 u[JC];        // forward: the bias
+  uint32_t m[2][JC];   // backward: the masks
+  auto fetch = [&](int q) {
+#pragma unroll
+    for (int jj = 0; jj < JC; ++jj) {
+      const bool on = 8 * (q + jj) < n;
+      if (!BWD) {
+        u[jj] = on ? __ldg(bp + 4 * (q + jj)) : make_float2(0.f, 0.f);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) m[h][jj] = on && live ? mrow[h][4 * (q + jj)] : 0u;
+      }
+    }
+  };
+  fetch(0);
+  wgmma_wait<0>();
+  fence_acc(d);
+  if (t == 0) mbar_arrive(bars + 8 * (a.stages + prev));
+  csync(c);   // every warp's products have read the A tiles: the epilogue works in place
+
+  // registers (4j + 2h, 4j + 2h + 1): row 16 warp + lane / 4 + 8 h,
+  // columns 8 j + 2 (lane % 4) + {0, 1}
+  // the swizzled byte offset of column out_col + 8 j + cq: xo[j % 8] plus
+  // 8 KB a block of 64 columns, j / 8 of them (row r's 128-byte line at
+  // 128 r; chunk k of it at k ^ (r % 8), and r % 8 is row0 % 8 for both h)
+  uint32_t xo[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int c8 = (out_col >> 3) + k;
+    xo[k] = (c8 >> 3) * PBYTES + (((c8 & 7) ^ (row0 & 7)) << 4);
+  }
+  const uint32_t ob = tile_of(c, op.out_tile) + row0 * SWZ + cq * 2;
+  float2 e[2][SUB];    // forward: dpt (dt layer); backward: w_sigma (e[0]; dt layer)
+#pragma unroll
+  for (int q = 0; q < NP / 8; q += JC) {
+    if (8 * q >= n) break;
+    if (q > 0) fetch(q);
+#pragma unroll
+    for (int jj = 0; jj < JC; ++jj) {
+      const int j = q + jj;
+      if (8 * j >= n) break;
+      if (j % SUB == 0) {
+#pragma unroll
+        for (int s = 0; s < SUB; ++s) {
+          const bool on = 8 * (j + s) < n;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            e[h][s] = !BWD && on && ray[h] >= 0 ? __ldg(drow[h] + 4 * (j + s))
+                                                : make_float2(0.f, 0.f);
+          if (BWD && on && rank1) e[0][s] = __bfloat1622float2(__ldg(wsp + 4 * (j + s)));
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x0 = d[4 * j + 2 * h], x1 = d[4 * j + 2 * h + 1];
+        const uint32_t at = ob + 8 * h * SWZ + xo[j % 8] + (j / 8) * PBYTES;
+        if (!BWD) {
+          // panel_layer's order: the bias, then the per-ray row
+          x0 += u[jj].x;
+          x1 += u[jj].y;
+          if (ray[h] >= 0) {
+            x0 += e[h][j % SUB].x;
+            x1 += e[h][j % SUB].y;
+          }
+          sts_pair(at, relu_nan(x0), relu_nan(x1));
+        } else {
+          if (rank1) {
+            x0 += gs[h] * e[0][j % SUB].x;
+            x1 += gs[h] * e[0][j % SUB].y;
+          }
+          const uint32_t mk = m[h][jj];
+          sts_pair(at, bf_lo(mk) > 0.f ? x0 : 0.f, bf_hi(mk) > 0.f ? x1 : 0.f);
+        }
+      }
+    }
+  }
+  // the generic stores, visible to the next product's asynchronous reads
+  fence_async();
+  csync(c);
+  wk.pend = o;
+}
+
+// The tile's rows, g rounded to bf16 (shared float copy and the stash's g
+// region), the points and x0 (panel.cuh::build_pe_sincos' arithmetic) in
+// the x0 tile, bound for the stash.
+__device__ __forceinline__ void tile_inputs(const StashArgs& a, int c, int p0, Walk& wk) {
+  const int t = threadIdx.x % WGT, P = a.N * a.S, S = a.S;
+  const int NR = a.stat ? N_STATIC : N_RAW;
+  float* g16 = g16_of(c);
+  float* pts = pts_of(c);
+  float* rz = rz_of(c);
+  int* ray = ray_of(c);
+  if (t < BTP) {
+    const int p = p0 + t;
+    ray[t] = p < P ? p / S : -1;
+    rz[t] = p < P ? a.z[p] : 0.f;
+  }
+  float gv[BTP * G_RAW / WGT];   // the loads together, then the shared stores
+#pragma unroll
+  for (int k = 0; k < BTP * G_RAW / WGT; ++k) {
+    const int i = t + k * WGT, col = i / BTP, p = p0 + i % BTP;
+    gv[k] = p < P && col < NR ? __ldg(a.g + (size_t)col * P + p) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < BTP * G_RAW / WGT; ++k) {
+    const int i = t + k * WGT;
+    g16[(i % BTP) * G_RAW + i / BTP] = bf(__float2bfloat16(gv[k]));
+  }
+  csync(c);
+  if (p0 < P) {   // 2 x 8 columns a row
+    const int r = t / 2, h = t % 2;
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(g16[r * G_RAW + 8 * h + e]);
+    *reinterpret_cast<uint4*>(region(a, R_GRAW(a.dm.D), p0 + r) + 8 * h) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+  for (int i = t; i < BTP * 3; i += WGT) {
+    const int r = i / 3, k = i % 3;
+    const int ry = ray[r];
+    const float zr = rz[r];
+    pts[i] = ry >= 0 ? a.ro[(size_t)ry * 3 + k] + a.rd[(size_t)ry * 3 + k] * zr : 0.f;
+  }
+  csync(c);
+  const uint32_t x0 = tile_of(c, T_X0);
+  const int F = a.dm.F, live = 6 * F + 3, extra = 3 + a.dm.K0 - live;
+  for (int i = t; i < BTP * F * 3; i += WGT) {
+    const int r = i / (F * 3), k = (i / 3) % F, j = i % 3;
+    float sn, cs;
+    sincosf(a.freqs[k] * pts[r * 3 + j], &sn, &cs);
+    sts_bf16(tile_at(x0, r, 3 + 6 * k + j), __float2bfloat16(sn));
+    sts_bf16(tile_at(x0, r, 6 + 6 * k + j), __float2bfloat16(cs));
+  }
+  for (int i = t; i < BTP * extra; i += WGT) {
+    const int r = i / extra, f = i % extra;
+    sts_bf16(tile_at(x0, r, f < 3 ? f : live + f - 3),
+             __float2bfloat16(f < 3 ? pts[r * 3 + f] : 0.f));
+  }
+  fence_async();
+  csync(c);
+  wk.pend = PEND_X0;
+}
+
+// The heads on the CUDA cores, 8 columns a thread: the masked bf16
+// cotangents of d (over d in X) and, fine pack, of t3 (over t3 in Y), to
+// the tiles and the stash. A part's weights are loaded together, before its
+// shared reads and stores. Head rows [row0, row0 + ROWS) over the packed
+// head matrix's columns [col0, col0 + 8), masked by the activations at `at`,
+// which the cotangents replace; returns them.
+template <int ROWS>
+__device__ __forceinline__ uint4 head_part(const bf16* wh, int W, const float* gr, int row0,
+                                           int col0, uint32_t at) {
+  uint4 w[ROWS];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k)
+    w[k] = __ldg(reinterpret_cast<const uint4*>(wh + (size_t)(row0 + k) * W + col0));
+  float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const float gk = gr[row0 + k];
+    const uint32_t wp[4] = {w[k].x, w[k].y, w[k].z, w[k].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[2 * e] += gk * bf_lo(wp[e]);
+      v[2 * e + 1] += gk * bf_hi(wp[e]);
+    }
+  }
+  const uint4 av = lds16(at);
+  const uint32_t ap[4] = {av.x, av.y, av.z, av.w};
+  uint32_t op[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    op[e] = bf_pack(bf_lo(ap[e]) > 0.f ? v[2 * e] : 0.f, bf_hi(ap[e]) > 0.f ? v[2 * e + 1] : 0.f);
+  const uint4 ov = make_uint4(op[0], op[1], op[2], op[3]);
+  sts16(at, ov);
+  return ov;
+}
+
+__device__ __forceinline__ void heads(const StashArgs& a, int c, int p0) {
+  // (locals: each shared-memory asm below is a compiler barrier to memory)
+  const int W = a.dm.W, half = W / 2, nch = half / 8, D = a.dm.D;
+  const bool live = p0 < a.N * a.S;
+  const float* g16 = g16_of(c);
+  const uint32_t X = tile_of(c, T_X), Y = tile_of(c, T_Y);
+  const bf16* wh = a.wts + blk.w_heads;
+  bf16* sd = region(a, R_GDT(D), p0);
+  bf16* st = region(a, R_GT(D, 3), p0);
+  for (int i = threadIdx.x % WGT; i < BTP * nch; i += WGT) {
+    const int r = i / nch, j0 = 8 * (i % nch);
+    const float* gr = g16 + r * G_RAW;
+    // rgb over d, then the transient rows over t3
+    const uint4 gd = head_part<3>(wh, W, gr, 0, j0, tile_at(X, r, j0));
+    if (live) *reinterpret_cast<uint4*>(sd + (size_t)r * (a.stat ? half : W) + j0) = gd;
+    if (!a.stat) {
+      const uint4 gt = head_part<N_RAW - 4>(wh, W, gr, 4, half + j0, tile_at(Y, r, j0));
+      if (live) *reinterpret_cast<uint4*>(st + (size_t)r * half + j0) = gt;
+    }
+  }
+}
+
+template <int WP>
+__global__ void __launch_bounds__(StashGeo<WP>::THREADS, 1)
+bwd_stash_kernel(const __grid_constant__ StashArgs a) {
+  typedef StashGeo<WP> G;
+  extern __shared__ unsigned char smem_raw[];
+  const int tiles = (a.N * a.S + BTP * a.ncw - 1) / (BTP * a.ncw);
+  if (threadIdx.x == 0) {
+    blk.base = (smem_u32(smem_raw) + ALIGN - 1) / ALIGN * ALIGN;
+    blk.L = stash_layout(a.dm.K0, a.dm.W, a.stat, a.ncw, a.stages, WP);
+    blk.nops = build_ops(a.dm, a.stat, blk.ops, &blk.nfwd);
+    blk.w_heads = (int)offsets(a.dm, a.stat).w_heads;
+    const uint32_t bars = blk.base + blk.L.bars;
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (a.stages + s), a.ncw);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // ---- forward recompute (fine_raw_t's arithmetic), writing A_l
-  build_pe_sincos(dm, tl, ro, rd, freqs);
-  {
-    const StashOut sx = at(R_X0());
-    const int cpr = K0 / 8;
-    for (int i = threadIdx.x; i < BTP * cpr; i += blockDim.x) {
-      const int r = i / cpr, c = (i % cpr) * 8;
-      *reinterpret_cast<uint4*>(sx.base + (size_t)r * K0 + c) =
-          *reinterpret_cast<const uint4*>(x0 + (size_t)r * ldx + c);
+  if (threadIdx.x < WGT) {
+    // the producer warpgroup: thread 0 streams the weight panels, in the
+    // order of the consumers' walk, one 64 x 64 box per 64 outputs
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      const uint32_t bars = blk.base + blk.L.bars, ring = blk.base + blk.L.ring;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int o = 0; o < blk.nops; ++o) {
+          const Op& op = blk.ops[o];
+          const int nb = (op.n + 63) / 64;
+          for (int sg = 0; sg < op.nseg; ++sg)
+            for (int k0 = 0; k0 < op.k[sg]; k0 += 64) {
+              mbar_wait(bars + 8 * (a.stages + stage), phase ^ 1);
+              mbar_expect_tx(bars + 8 * stage, nb * PBYTES);
+              const uint32_t dst = ring + stage * blk.L.stage_bytes;
+              for (int b = 0; b < nb; ++b)
+                tma_load(dst + b * PBYTES, &a.maps.m[op.map[sg]], op.bwd ? 64 * b : k0,
+                         op.bwd ? k0 : 64 * b, bars + 8 * stage);
+              if (++stage == a.stages) {
+                stage = 0;
+                phase ^= 1;
+              }
+            }
+        }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::CONSUMER_REGS));
+  const int c = threadIdx.x / WGT - 1;
+  Walk wk{0, 0u, -1};
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int p0 = (tile * a.ncw + c) * BTP;
+    tile_inputs(a, c, p0, wk);
+    for (int o = 0; o < blk.nfwd; ++o) layer<WP, 0>(a, c, p0, o, wk);
+    flush(a, c, p0, wk);
+    csync(c);
+    heads(a, c, p0);
+    fence_async();
+    csync(c);
+    for (int o = blk.nfwd; o < blk.nops; ++o) layer<WP, 1>(a, c, p0, o, wk);
+    flush(a, c, p0, wk);
+  }
+}
+
+// Consumers a block and ring stages for a sweep, then the launch.
+template <int WP>
+int launch_stash(StashArgs& a, cudaStream_t stream) {
+  typedef StashGeo<WP> G;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles64 = (a.N * a.S + BTP - 1) / BTP;
+  // the fewest rounds of blocks over the SMs, a block costing its
+  // consumers plus one (its fixed latencies); ties to more consumers
+  int ncw = 1, best = -1;
+  for (int k = 1; k <= G::NCW; ++k) {
+    const int blocks = (tiles64 + k - 1) / k;
+    const int cost = (blocks + sms - 1) / sms * (k + 1);
+    if (best < 0 || cost <= best) {
+      best = cost;
+      ncw = k;
     }
   }
-  panel_layer<false, NJ>(x0, ldx, K0, wts, nullptr, 0, 0, nullptr, W, pan0, pan1, bias,
-                     nullptr, 0, nullptr, nullptr, 0, nullptr, 0, nullptr, hA, ldh,
-                     at(R_H(0)), scratch);
-  bf16* cur = hA;
-  bf16* nxt = hB;
-  for (int i = 1; i < D; ++i) {
-    const bf16* wi = wts + trunk_off(dm, i);
-    if (i == dm.skip)
-      panel_layer<false, NJ>(x0, ldx, K0, wi, cur, ldh, W, wi + (size_t)W * K0, W, pan0,
-                         pan1, bias + i * W, nullptr, 0, nullptr, nullptr, 0, nullptr, 0,
-                         nullptr, nxt, ldh, at(R_H(i)), scratch);
-    else
-      panel_layer<false, NJ>(cur, ldh, W, wi, nullptr, 0, 0, nullptr, W, pan0, pan1,
-                         bias + i * W, nullptr, 0, nullptr, nullptr, 0, nullptr, 0,
-                         nullptr, nxt, ldh, at(R_H(i)), scratch);
-    bf16* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  const Offsets of = offsets(dm, stat);
-  const bf16* w_heads = wts + of.w_heads;
-  bf16* X = cur;   // h_{D-1}; then t1 | t2, t3 over t1; then cotangents
-  bf16* Y = nxt;   // dt0 = [d | t0]; then G_dt in place
-  panel_layer<false, NJ>(X, ldh, W, wts + of.w_dt, nullptr, 0, 0, nullptr, Wd, pan0, pan1,
-                     bias + of.b_dt, dpt, Wd, tl.ray, nullptr, 0, nullptr, 0, nullptr, Y,
-                     ldh, at(R_DT0(D)), scratch);
-  if (!stat) {
-    const bf16* w_tr = wts + of.w_tr;
-    const size_t hh = (size_t)half * half;
-    panel_layer<false, NJ>(Y + half, ldh, half, w_tr, nullptr, 0, 0, nullptr, half, pan0,
-                       pan1, bias + of.b_tr, nullptr, 0, nullptr, nullptr, 0, nullptr, 0,
-                       nullptr, X, ldh, at(R_T(D, 1)), scratch);
-    panel_layer<false, NJ>(X, ldh, half, w_tr + hh, nullptr, 0, 0, nullptr, half, pan0, pan1,
-                       bias + of.b_tr + half, nullptr, 0, nullptr, nullptr, 0, nullptr,
-                       0, nullptr, X + half, ldh, at(R_T(D, 2)), scratch);
-    panel_layer<false, NJ>(X + half, ldh, half, w_tr + 2 * hh, nullptr, 0, 0, nullptr, half,
-                       pan0, pan1, bias + of.b_tr + 2 * half, nullptr, 0, nullptr,
-                       nullptr, 0, nullptr, 0, nullptr, X, ldh, at(R_T(D, 3)), scratch);
-  }
-
-  // ---- heads (CUDA cores: at most 9 rows): the masked bf16 cotangents of
-  // d (in place over d in Y) and of t3 (in place over t3 in X)
-  const StashOut sdt = at(R_GDT(D));
-  const StashOut st3 = stat ? StashOut{nullptr, 0} : at(R_GT(D, 3));
-  for (int idx = threadIdx.x; idx < BTP * half; idx += blockDim.x) {
-    const int r = idx / half, j = idx % half;
-    float v = 0.f;
-    for (int c = 0; c < 3; ++c) v += g16[r * G_RAW + c] * bf(w_heads[(size_t)c * W + j]);
-    const bf16 gd = __float2bfloat16(bf(Y[r * ldh + j]) > 0.f ? v : 0.f);
-    Y[r * ldh + j] = gd;
-    sdt.base[(size_t)r * sdt.ld + j] = gd;
-    if (!stat) {
-      float u = 0.f;
-      for (int c = 4; c < N_RAW; ++c)
-        u += g16[r * G_RAW + c] * bf(w_heads[(size_t)c * W + half + j]);
-      const bf16 gt = __float2bfloat16(bf(X[r * ldh + j]) > 0.f ? u : 0.f);
-      X[r * ldh + j] = gt;
-      st3.base[(size_t)r * st3.ld + j] = gt;
-    }
-  }
-  __syncthreads();
-
-  // ---- transient chain, t3 down to t0 (the t half of G_dt)
-  if (!stat) {
-    const bf16* w_tr = wts + of.w_tr;
-    const size_t hh = (size_t)half * half;
-    const StashOut t1 = at(R_T(D, 1));
-    panel_layer<true, NJ>(X, ldh, half, w_tr + 2 * hh, nullptr, 0, 0, nullptr, half, pan0,
-                      pan1, nullptr, nullptr, 0, nullptr, X + half, ldh, nullptr, 0,
-                      nullptr, X + half, ldh, at(R_GT(D, 2)), scratch);
-    panel_layer<true, NJ>(X + half, ldh, half, w_tr + hh, nullptr, 0, 0, nullptr, half, pan0,
-                      pan1, nullptr, nullptr, 0, nullptr, t1.base, t1.ld, nullptr, 0,
-                      nullptr, X, ldh, at(R_GT(D, 1)), scratch);
-    panel_layer<true, NJ>(X, ldh, half, w_tr, nullptr, 0, 0, nullptr, half, pan0, pan1,
-                      nullptr, nullptr, 0, nullptr, Y + half, ldh, nullptr, 0, nullptr,
-                      Y + half, ldh, col(sdt, half), scratch);
-  }
-
-  // ---- the dt layer's input grad plus the sigma head's share, masked by
-  // h_{D-1}; then the trunk, layer D-1 down to 1 (the skip layer's h half)
-  {
-    const StashOut h = at(R_H(D - 1));
-    panel_layer<true, NJ>(Y, ldh, Wd, wts + of.w_dt, nullptr, 0, 0, nullptr, W, pan0, pan1,
-                      nullptr, nullptr, 0, nullptr, h.base, h.ld, g16 + 3, G_RAW,
-                      w_heads + (size_t)3 * W, X, ldh, at(R_GH(D, D - 1)), scratch);
-  }
-  bf16* gc = X;
-  bf16* ga = Y;
-  for (int i = D - 1; i >= 1; --i) {
-    const bf16* wh = wts + trunk_off(dm, i) + (i == dm.skip ? (size_t)W * K0 : 0);
-    const StashOut h = at(R_H(i - 1));
-    panel_layer<true, NJ>(gc, ldh, W, wh, nullptr, 0, 0, nullptr, W, pan0, pan1, nullptr,
-                      nullptr, 0, nullptr, h.base, h.ld, nullptr, 0, nullptr, ga, ldh,
-                      at(R_GH(D, i - 1)), scratch);
-    bf16* t = gc;
-    gc = ga;
-    ga = t;
-  }
+  int stages = 0;
+  for (int st = MAX_STAGES; st >= 2 && !stages; --st)
+    if (stash_layout(a.dm.K0, a.dm.W, a.stat, ncw, st, WP).total <= DYN_LIMIT) stages = st;
+  if (!stages) return (int)cudaErrorInvalidValue;
+  a.ncw = ncw;
+  a.stages = stages;
+  const int smem = stash_layout(a.dm.K0, a.dm.W, a.stat, ncw, stages, WP).total;
+  e = cudaFuncSetAttribute(bwd_stash_kernel<WP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (tiles64 + ncw - 1) / ncw;
+  bwd_stash_kernel<WP><<<blocks < sms ? blocks : sms, (ncw + 1) * WGT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -445,29 +970,60 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ partials, int n_chun
 
 // Launch 1. regions: host arrays of the stash regions' offsets (elements)
 // and widths, n_regions == 2 D + 10. The wrapper checks W (a multiple of 32,
-// at most 256) and the skip.
+// at most 256), the skip and the 16-byte alignment of the packed weights
+// (the tensor maps' base addresses).
 extern "C" int dfn_raw_bwd_stash(const float* ro, const float* rd, const float* z,
                                  const float* dpt, int N, int S, const void* wts,
                                  const float* bias, const float* freqs, int D, int W,
                                  int skip, int F, int stat, const float* g, void* stash,
                                  const long long* reg_off, const int* reg_width,
                                  int n_regions, void* stream) {
-  if (n_regions != 2 * D + 10 || n_regions > MAX_REGIONS) return (int)cudaErrorInvalidValue;
-  Dims dm{D, W, skip, F, pe_cols(F), BTP};
-  Regions rg{};
+  // the kernel counts points in int, up to a spare block's past the sweep
+  if (n_regions != 2 * D + 10 || n_regions > MAX_REGIONS || W < 32 || W > 256 || W % 32 ||
+      reinterpret_cast<uintptr_t>(wts) % 16 || (long long)N * S > (1LL << 31) - 1024)
+    return (int)cudaErrorInvalidValue;
+  StashArgs a;
+  a.dm = Dims{D, W, skip, F, pe_cols(F), BTP};
   for (int i = 0; i < n_regions; ++i) {
-    rg.off[i] = reg_off[i];
-    rg.width[i] = reg_width[i];
+    a.rg.off[i] = reg_off[i];
+    a.rg.width[i] = reg_width[i];
   }
-  const StashLayout L = stash_layout(dm.K0, W);
-  auto kernel = W <= 128 ? bwd_stash_kernel<2> : bwd_stash_kernel<4>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)L.total);
-  if (e != cudaSuccess) return (int)e;
-  const long long tiles = ((long long)N * S + BTP - 1) / BTP;
-  kernel<<<(unsigned)tiles, NTHREADS, L.total, (cudaStream_t)stream>>>(
-      ro, rd, z, dpt, g, N, S, (const bf16*)wts, bias, freqs, dm, stat, (bf16*)stash, rg);
-  return (int)cudaGetLastError();
+  a.ro = ro;
+  a.rd = rd;
+  a.z = z;
+  a.dpt = dpt;
+  a.g = g;
+  a.bias = bias;
+  a.freqs = freqs;
+  a.wts = (const bf16*)wts;
+  a.stash = (bf16*)stash;
+  a.N = N;
+  a.S = S;
+  a.stat = stat;
+  // one tensor map per weight matrix, in packed order (build_ops' map indices)
+  const int half = W / 2, Wd = stat ? half : W;
+  int m = 0;
+  bool ok = true;
+  auto add = [&](size_t off, int rows, int cols) {
+    ok = ok && tensor_map<bf16>(&a.maps.m[m++], a.wts + off, rows, cols, 64);
+  };
+  add(0, W, a.dm.K0);
+  for (int i = 1; i < D; ++i) {
+    const size_t off = trunk_off(a.dm, i);
+    if (i == skip) {
+      add(off, W, a.dm.K0);
+      add(off + (size_t)W * a.dm.K0, W, W);
+    } else {
+      add(off, W, W);
+    }
+  }
+  const Offsets of = offsets(a.dm, stat);
+  add(of.w_dt, Wd, W);
+  if (!stat)
+    for (int q = 0; q < 3; ++q) add(of.w_tr + (size_t)q * half * half, half, half);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return W <= 128 ? launch_stash<128>(a, st) : launch_stash<256>(a, st);
 }
 
 // Launch 2. problems: device int64 (n_problems, 13); jobs: device int32

@@ -123,23 +123,18 @@ __device__ __forceinline__ void sweep_trunk(const SweepTile& t, const Dims& dm,
   const int W = dm.W, K0 = dm.K0, D = dm.D;
   const int ldx = K0 + PAD, ldh = W + PAD;
   build_pe_sincos(dm, t.tl, ro, rd, freqs);
-  const StashOut none{nullptr, 0};
-  panel_layer<false, NJ, false>(t.x0, ldx, K0, wts, nullptr, 0, 0, nullptr, W, t.pan0,
-                                t.pan1, bias, nullptr, 0, nullptr, nullptr, 0, nullptr, 0,
-                                nullptr, t.hA, ldh, none, t.scratch);
+  panel_layer<NJ>(t.x0, ldx, K0, wts, nullptr, 0, 0, nullptr, W, t.pan0, t.pan1, bias, nullptr, 0,
+                  nullptr, t.hA, ldh, t.scratch);
   X = t.hA;
   Y = t.hB;
   for (int i = 1; i < D; ++i) {
     const bf16* wi = wts + trunk_off(dm, i);
     if (i == dm.skip)
-      panel_layer<false, NJ, false>(t.x0, ldx, K0, wi, X, ldh, W, wi + (size_t)W * K0, W,
-                                    t.pan0, t.pan1, bias + i * W, nullptr, 0, nullptr,
-                                    nullptr, 0, nullptr, 0, nullptr, Y, ldh, none,
-                                    t.scratch);
+      panel_layer<NJ>(t.x0, ldx, K0, wi, X, ldh, W, wi + (size_t)W * K0, W, t.pan0, t.pan1,
+                      bias + i * W, nullptr, 0, nullptr, Y, ldh, t.scratch);
     else
-      panel_layer<false, NJ, false>(X, ldh, W, wi, nullptr, 0, 0, nullptr, W, t.pan0,
-                                    t.pan1, bias + i * W, nullptr, 0, nullptr, nullptr, 0,
-                                    nullptr, 0, nullptr, Y, ldh, none, t.scratch);
+      panel_layer<NJ>(X, ldh, W, wi, nullptr, 0, 0, nullptr, W, t.pan0, t.pan1, bias + i * W,
+                      nullptr, 0, nullptr, Y, ldh, t.scratch);
     bf16* tmp = X;
     X = Y;
     Y = tmp;
@@ -163,13 +158,11 @@ __device__ __forceinline__ void fine_sweep(const SweepTile& t, const Dims& dm, i
   const int Wd = stat ? half : W;
   const int ldh = W + PAD, ldw = 2 * W + PAD;
   const Offsets of = offsets(dm, stat);
-  const StashOut none{nullptr, 0};
   bf16 *X, *Y;
   sweep_trunk<NJ>(t, dm, ro, rd, wts, bias, freqs, X, Y);
   // X = h_{D-1}; Y = dt0 = [d | t0] (d only in the static pack)
-  panel_layer<false, NJ, false>(X, ldh, W, wts + of.w_dt, nullptr, 0, 0, nullptr, Wd,
-                                t.pan0, t.pan1, bias + of.b_dt, dpt, Wd, t.tl.ray, nullptr,
-                                0, nullptr, 0, nullptr, Y, ldh, none, t.scratch);
+  panel_layer<NJ>(X, ldh, W, wts + of.w_dt, nullptr, 0, 0, nullptr, Wd, t.pan0, t.pan1,
+                  bias + of.b_dt, dpt, Wd, t.tl.ray, Y, ldh, t.scratch);
   const int warp = threadIdx.x / 32;
   // sigma over h, before the transient chain overwrites h
   if (warp < TP / 16) {
@@ -184,16 +177,12 @@ __device__ __forceinline__ void fine_sweep(const SweepTile& t, const Dims& dm, i
     const bf16* w_tr = wts + of.w_tr;
     const float* b_tr = bias + of.b_tr;
     const size_t hh = (size_t)half * half;
-    panel_layer<false, NJ, false>(Y + half, ldh, half, w_tr, nullptr, 0, 0, nullptr, half,
-                                  t.pan0, t.pan1, b_tr, nullptr, 0, nullptr, nullptr, 0,
-                                  nullptr, 0, nullptr, X, ldh, none, t.scratch);
-    panel_layer<false, NJ, false>(X, ldh, half, w_tr + hh, nullptr, 0, 0, nullptr, half,
-                                  t.pan0, t.pan1, b_tr + half, nullptr, 0, nullptr, nullptr,
-                                  0, nullptr, 0, nullptr, X + half, ldh, none, t.scratch);
-    panel_layer<false, NJ, false>(X + half, ldh, half, w_tr + 2 * hh, nullptr, 0, 0,
-                                  nullptr, half, t.pan0, t.pan1, b_tr + 2 * half, nullptr, 0,
-                                  nullptr, nullptr, 0, nullptr, 0, nullptr, X, ldh, none,
-                                  t.scratch);
+    panel_layer<NJ>(Y + half, ldh, half, w_tr, nullptr, 0, 0, nullptr, half, t.pan0, t.pan1, b_tr,
+                    nullptr, 0, nullptr, X, ldh, t.scratch);
+    panel_layer<NJ>(X, ldh, half, w_tr + hh, nullptr, 0, 0, nullptr, half, t.pan0, t.pan1,
+                    b_tr + half, nullptr, 0, nullptr, X + half, ldh, t.scratch);
+    panel_layer<NJ>(X + half, ldh, half, w_tr + 2 * hh, nullptr, 0, 0, nullptr, half, t.pan0,
+                    t.pan1, b_tr + 2 * half, nullptr, 0, nullptr, X, ldh, t.scratch);
   } else {
     __syncthreads();   // hout's sigma share is complete
   }

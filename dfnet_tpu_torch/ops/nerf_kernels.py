@@ -1034,6 +1034,9 @@ def raw_bwd_launches(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSp
     args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
     _check("g", g, (spec.n_raw, N, S), torch.float32, dev)
     _check_aligned16("raw_bwd_t", dpt, packed["b"])
+    if packed["w"].data_ptr() % 16:
+        raise ValueError("raw_bwd_t loads the packed weights by TMA: they must start "
+                         "16-byte aligned")
     d_w = torch.empty_like(packed["w"])
     d_b = torch.empty_like(packed["b"])
     d_dpt = torch.empty((N, spec.Wd), device=dev, dtype=torch.float32)

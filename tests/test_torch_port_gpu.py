@@ -302,7 +302,8 @@ def _bwd_close(N, packed, spec, ro, rd, z, dpt, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("static", [False, True])
-@pytest.mark.parametrize("D,W,skip,S", [(4, 64, 2, 24), (2, 256, 1, 64)])
+@pytest.mark.parametrize("D,W,skip,S", [(4, 64, 2, 24), (2, 256, 1, 64),
+                                        (8, 256, 5, 64)])   # the original NeRF's trunk
 def test_raw_bwd_kernel_matches_plain(cuda, D, W, skip, S, static):
     N = 37                                      # ragged against every tile
     packed, spec, ro, rd, z, dpt, g = _sweep_inputs(D, W, skip, static, N, S, cuda,
@@ -415,7 +416,8 @@ def _stash_steps(k, packed, spec, dpt, S):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("static", [False, True])
-@pytest.mark.parametrize("D,W,skip,S", [(8, 128, 4, 24), (2, 256, 1, 64)])
+@pytest.mark.parametrize("D,W,skip,S", [(8, 128, 4, 24), (2, 256, 1, 64), (8, 128, 4, 12),
+                                        (8, 256, 5, 64), (4, 256, 2, 192)])
 def test_raw_bwd_stash_matches_plain(cuda, D, W, skip, S, static):
     """bwd_stash alone, so that a fault shows in its phase and layer: x0 and
     g_raw against raw_bwd_stash_plain (2e-2, fine_raw_t's bar; g_raw
@@ -440,6 +442,70 @@ def test_raw_bwd_stash_matches_plain(cuda, D, W, skip, S, static):
         assert torch.isfinite(k[name]).all(), name
         scale = max(w.abs().max().item(), 1e-30)
         torch.testing.assert_close(k[name], w, rtol=2e-2, atol=1e-3 * scale, msg=name)
+
+
+def _probe_pack(packed, spec, depth, cols):
+    """The first `depth` trunk layers of `packed` with a tail whose fine_raw_t
+    outputs are trunk layer depth - 1's activations at `cols`, exactly: sigma
+    reads cols[0]; the dt layer copies cols[1:4] into d, and on the fine pack
+    cols[4:9] into t0, which the identity transient chain carries to t3; the
+    rgb and transient heads read those copies. Zero biases, so each output
+    is one bf16 activation times 1 (its spec and pack)."""
+    skip = spec.skip if spec.skip < depth else -1
+    sp = nk.KernelSpec(D=depth, W=spec.W, skip=skip, F=spec.F, fine=spec.fine,
+                       static=spec.static)
+    v = nk.unpack(packed, spec)
+    half = spec.W // 2
+    parts = {n: v[n] for n, _ in nk._layout(sp)[0] if n in v and n[0] == "w" and n[1] != "_"}
+    parts["b_trunk"] = v["b_trunk"][:depth]
+    ws, bs = nk._layout(sp)
+    for name, shape in ws + bs:
+        if name not in parts:
+            parts[name] = torch.zeros(shape, device=packed["w"].device)
+    parts["w_heads"][3, cols[0]] = 1
+    for k, c in enumerate(cols[1:4]):
+        parts["w_dt"][k, c] = 1
+        parts["w_heads"][k, k] = 1
+    if spec.fine:
+        for k, c in enumerate(cols[4:9]):
+            parts["w_dt"][half + k, c] = 1
+            parts["w_heads"][4 + k, half + k] = 1
+        for i in range(3):
+            parts[f"w_tr{i}"] = torch.eye(half, device=packed["w"].device)
+    return sp, {"w": nk._flat(parts, ws, torch.bfloat16).contiguous(),
+                "b": nk._flat(parts, bs, torch.float32).contiguous(), "freqs": packed["freqs"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,W,skip,S,static", [(8, 128, 4, 12, False), (8, 128, 4, 64, True),
+                                               (8, 256, 5, 64, True), (2, 256, 1, 24, False)])
+def test_raw_bwd_stash_trunk_matches_the_forward_sweep(cuda, D, W, skip, S, static):
+    """The trunk activations bwd_stash recomputes (h0 .. h{D-1}) against those
+    fine_raw_t computes on the same points, bit for bit: the backward's ReLU
+    masks are the forward's. fine_raw_t runs the net cut after each layer,
+    with a tail that copies that layer's activations to its outputs
+    (_probe_pack; 4 columns a launch on the static pack, 9 on the fine). The
+    share of activations that differ is held at zero."""
+    N = 37
+    packed, spec, ro, rd, z, dpt, g = _sweep_inputs(D, W, skip, static, N, S, cuda, 11)
+    launches, _, stash = nk.raw_bwd_launches(packed, ro, rd, z, dpt, g, spec)
+    dict(launches)["stash"]()
+    views = nk.bwd_stash_views(stash, spec, N, S)
+    per = spec.n_raw
+    differ = {}
+    for depth in range(1, D + 1):
+        h = views[f"h{depth - 1}"].float()
+        seen = torch.empty_like(h)
+        for c0 in range(0, W, per):
+            cols = [(c0 + k) % W for k in range(per)]
+            sp, probe = _probe_pack(packed, spec, depth, cols)
+            out = nk.fine_raw_t(probe, ro, rd, z, torch.zeros_like(dpt), sp).reshape(per, -1)
+            # output row r reads column cols[order[r]]: sigma (row 3) cols[0]
+            order = [1, 2, 3, 0] + list(range(4, per))
+            for r in range(per):
+                seen[:, cols[order[r]]] = out[r]
+        differ[f"h{depth - 1}"] = (seen != h).float().mean().item()
+    assert all(v == 0.0 for v in differ.values()), differ
 
 
 def _proposal_inputs(W, F, N, device, seed):
