@@ -27,7 +27,7 @@ import torch.nn.functional as Fn
 
 from dfnet_tpu_torch.models.vgg import (
     VGG19_LAYOUT,
-    _torch_conv_init,
+    torch_conv_init,
     conv2d,
     init_vgg_params,
     maxpool2,
@@ -47,12 +47,12 @@ def init_autoencoder_params(gen: torch.Generator,
     enc: List[Dict] = []
     cin = 3
     for w in cfg.widths:
-        enc.append({"conv1": _torch_conv_init(gen, 3, 3, cin, w, device),
-                    "conv2": _torch_conv_init(gen, 3, 3, w, w, device)})
+        enc.append({"conv1": torch_conv_init(gen, 3, 3, cin, w, device),
+                    "conv2": torch_conv_init(gen, 3, 3, w, w, device)})
         cin = w
     dec: List[Dict] = []
     for w in list(reversed(cfg.widths[:-1])) + [3]:
-        dec.append({"conv": _torch_conv_init(gen, 3, 3, cin, w, device)})
+        dec.append({"conv": torch_conv_init(gen, 3, 3, cin, w, device)})
         cin = w
     return {"enc": enc, "dec": dec}
 
@@ -98,9 +98,9 @@ def conv2d_transpose(p: Dict, x: torch.Tensor, stride: int = 1, padding: int = 0
 
 def init_autoencoder_vgg1(gen: torch.Generator, device="cpu") -> Dict:
     return {
-        "e1": _torch_conv_init(gen, 3, 3, 3, 16, device),
-        "e2": _torch_conv_init(gen, 3, 3, 16, 32, device),
-        "e3": _torch_conv_init(gen, 7, 7, 32, 64, device),
+        "e1": torch_conv_init(gen, 3, 3, 3, 16, device),
+        "e2": torch_conv_init(gen, 3, 3, 16, 32, device),
+        "e3": torch_conv_init(gen, 7, 7, 32, 64, device),
         "d1": _torch_convT_init(gen, 7, 7, 64, 32, device),
         "d2": _torch_convT_init(gen, 3, 3, 32, 16, device),
         "d3": _torch_convT_init(gen, 3, 3, 16, 3, device),
@@ -138,7 +138,7 @@ def init_autoencoder_vgg3(gen: torch.Generator, device="cpu") -> Dict:
         "d1": _torch_convT_init(gen, 2, 2, 512, 512, device),
         "d2": _torch_convT_init(gen, 4, 4, 512, 256, device),
         "d3": _torch_convT_init(gen, 4, 4, 256, 64, device),
-        "d4": _torch_conv_init(gen, 3, 3, 64, 3, device),
+        "d4": torch_conv_init(gen, 3, 3, 64, 3, device),
     }
 
 
@@ -156,7 +156,7 @@ def autoencoder_vgg3(params: Dict, x: torch.Tensor):
 
 
 def _conv_decoder_params(gen: torch.Generator, widths, device) -> List[Dict]:
-    return [{"conv": _torch_conv_init(gen, 3, 3, cin, cout, device)}
+    return [{"conv": torch_conv_init(gen, 3, 3, cin, cout, device)}
             for cin, cout in zip(widths[:-1], widths[1:])]
 
 

@@ -38,7 +38,7 @@ import torch.nn.functional as Fn
 from dfnet_tpu_torch.models.layers import params_from_jax, params_to_jax
 from dfnet_tpu_torch.models.vgg import (
     VGG16_LAYOUT,
-    _torch_conv_init,
+    torch_conv_init,
     conv2d,
     imagenet_normalize,
     init_vgg16_params,
@@ -72,8 +72,8 @@ def init_dfnet_params(gen: torch.Generator, cfg: DFNetConfig = DFNetConfig(),
     state: Dict = {"adapt": {}}
     for i, name in enumerate(cfg.hypercolumn_layers):
         params["adapt"][str(i)] = {
-            "conv1": _torch_conv_init(gen, 1, 1, _VGG_CHANNELS[name], 64, device),
-            "conv2": _torch_conv_init(gen, 5, 5, 64, cfg.output_dim, device),
+            "conv1": torch_conv_init(gen, 1, 1, _VGG_CHANNELS[name], 64, device),
+            "conv2": torch_conv_init(gen, 5, 5, 64, cfg.output_dim, device),
             "bn_scale": torch.ones(cfg.output_dim, device=device),
             "bn_bias": torch.zeros(cfg.output_dim, device=device),
         }

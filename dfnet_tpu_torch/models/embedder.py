@@ -5,8 +5,8 @@ cos(f1·x), ...] with log-spaced frequencies 2^0..2^max, each sin/cos
 block over all input channels. The windowed (coarse-to-fine) variant
 (--reduce_embedding 2) takes an epoch, which the plain renderer
 (render/volume.py) and the stage-1 loss hand it; the kernel paths never
-window (fast_path_supported and fused_train_supported refuse a windowed
-embedder, so such a model takes the plain renderer).
+window (render/fast.py::kernels_serve refuses a windowed embedder, so
+such a model takes the plain renderer).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from dfnet_tpu_torch.models.nerfw import _dense, _linear_init, _mm
+from dfnet_tpu_torch.models.nerfw import dense, linear_init, mm
 
 
 @dataclass(frozen=True)
@@ -45,14 +45,14 @@ def init_nerf_params(gen: torch.Generator, cfg: VanillaNeRFConfig, device="cpu")
             fan_in = cfg.W + cfg.in_xyz
         else:
             fan_in = cfg.W
-        p[f"pts_{i}"] = _linear_init(gen, fan_in, cfg.W, device)
+        p[f"pts_{i}"] = linear_init(gen, fan_in, cfg.W, device)
     if cfg.use_viewdirs:
-        p["feature"] = _linear_init(gen, cfg.W, cfg.W, device)
-        p["alpha"] = _linear_init(gen, cfg.W, 1, device)
-        p["views_0"] = _linear_init(gen, cfg.W + cfg.in_dir, cfg.W // 2, device)
-        p["rgb"] = _linear_init(gen, cfg.W // 2, 3, device)
+        p["feature"] = linear_init(gen, cfg.W, cfg.W, device)
+        p["alpha"] = linear_init(gen, cfg.W, 1, device)
+        p["views_0"] = linear_init(gen, cfg.W + cfg.in_dir, cfg.W // 2, device)
+        p["rgb"] = linear_init(gen, cfg.W // 2, 3, device)
     else:
-        p["output"] = _linear_init(gen, cfg.W, cfg.output_ch, device)
+        p["output"] = linear_init(gen, cfg.W, cfg.output_ch, device)
     return p
 
 
@@ -66,18 +66,18 @@ def nerf_apply_rays(params: Dict, cfg: VanillaNeRFConfig,
     dt = cfg.compute_dtype
     h = xyz_emb
     for i in range(cfg.D):
-        h = torch.relu(_dense(params[f"pts_{i}"], h, dt))
+        h = torch.relu(dense(params[f"pts_{i}"], h, dt))
         if i in cfg.skips:
             h = torch.cat([xyz_emb, h], -1)
     if not cfg.use_viewdirs:
-        return _dense(params["output"], h, dt)
-    alpha = _dense(params["alpha"], h, dt)
-    feature = _dense(params["feature"], h, dt)
+        return dense(params["output"], h, dt)
+    alpha = dense(params["alpha"], h, dt)
+    feature = dense(params["feature"], h, dt)
     wv = params["views_0"]["w"]
-    per_ray = _mm(dir_emb, wv[cfg.W:], dt)
-    hh = torch.relu(_mm(feature, wv[:cfg.W], dt) + per_ray[:, None, :]
+    per_ray = mm(dir_emb, wv[cfg.W:], dt)
+    hh = torch.relu(mm(feature, wv[:cfg.W], dt) + per_ray[:, None, :]
                     + params["views_0"]["b"])
-    rgb = _dense(params["rgb"], hh, dt)
+    rgb = dense(params["rgb"], hh, dt)
     return torch.cat([rgb, alpha], -1)
 
 

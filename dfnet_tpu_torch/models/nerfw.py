@@ -33,7 +33,7 @@ class NeRFWConfig:
     compute_dtype: torch.dtype = torch.float32
 
 
-def _linear_init(gen: torch.Generator, fan_in: int, fan_out: int, device) -> Dict:
+def linear_init(gen: torch.Generator, fan_in: int, fan_out: int, device) -> Dict:
     """torch.nn.Linear's default init: uniform(+-1/sqrt(fan_in)) weights
     and bias."""
     bound = 1.0 / fan_in ** 0.5
@@ -48,18 +48,18 @@ def init_nerfw_params(gen: torch.Generator, cfg: NeRFWConfig, device="cpu") -> D
     in_a = cfg.in_a if cfg.encode_appearance else 0
     for i in range(cfg.D):
         fan_in = cfg.in_xyz if i == 0 else (cfg.W + cfg.in_xyz if i in cfg.skips else cfg.W)
-        p[f"xyz_{i}"] = _linear_init(gen, fan_in, cfg.W, device)
-    p["xyz_final"] = _linear_init(gen, cfg.W, cfg.W, device)
-    p["dir"] = _linear_init(gen, cfg.W + cfg.in_dir + in_a, cfg.W // 2, device)
-    p["static_sigma"] = _linear_init(gen, cfg.W, 1, device)
-    p["static_rgb"] = _linear_init(gen, cfg.W // 2, cfg.out_ch, device)
+        p[f"xyz_{i}"] = linear_init(gen, fan_in, cfg.W, device)
+    p["xyz_final"] = linear_init(gen, cfg.W, cfg.W, device)
+    p["dir"] = linear_init(gen, cfg.W + cfg.in_dir + in_a, cfg.W // 2, device)
+    p["static_sigma"] = linear_init(gen, cfg.W, 1, device)
+    p["static_rgb"] = linear_init(gen, cfg.W // 2, cfg.out_ch, device)
     if cfg.encode_transient:
-        p["trans_0"] = _linear_init(gen, cfg.W + cfg.in_t, cfg.W // 2, device)
+        p["trans_0"] = linear_init(gen, cfg.W + cfg.in_t, cfg.W // 2, device)
         for i in (1, 2, 3):
-            p[f"trans_{i}"] = _linear_init(gen, cfg.W // 2, cfg.W // 2, device)
-        p["trans_sigma"] = _linear_init(gen, cfg.W // 2, 1, device)
-        p["trans_rgb"] = _linear_init(gen, cfg.W // 2, cfg.out_ch, device)
-        p["trans_beta"] = _linear_init(gen, cfg.W // 2, 1, device)
+            p[f"trans_{i}"] = linear_init(gen, cfg.W // 2, cfg.W // 2, device)
+        p["trans_sigma"] = linear_init(gen, cfg.W // 2, 1, device)
+        p["trans_rgb"] = linear_init(gen, cfg.W // 2, cfg.out_ch, device)
+        p["trans_beta"] = linear_init(gen, cfg.W // 2, 1, device)
     return p
 
 
@@ -69,8 +69,8 @@ def init_sigma_mlp(gen: torch.Generator, cfg: NeRFWConfig, device="cpu") -> Dict
     for i in range(cfg.D):
         fan_in = cfg.in_xyz if i == 0 else (
             cfg.W + cfg.in_xyz if i in cfg.skips else cfg.W)
-        p[f"xyz_{i}"] = _linear_init(gen, fan_in, cfg.W, device)
-    p["static_sigma"] = _linear_init(gen, cfg.W, 1, device)
+        p[f"xyz_{i}"] = linear_init(gen, fan_in, cfg.W, device)
+    p["static_sigma"] = linear_init(gen, cfg.W, 1, device)
     return p
 
 
@@ -81,7 +81,7 @@ def init_embeddings(gen: torch.Generator, n_vocab: int, n_a: int = 5,
             "t": torch.randn((n_vocab, n_tau), generator=gen).to(device)}
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+def mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """x @ w with `dt` operands and a float32 result (bf16 operands are
     rounded, then multiplied in float32)."""
     if dt == torch.float32:
@@ -89,8 +89,9 @@ def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return x.to(dt).float() @ w.to(dt).float()
 
 
-def _dense(p, x, dt):
-    return _mm(x, p["w"], dt) + p["b"]
+def dense(p, x, dt):
+    """x @ p["w"] + p["b"] with `dt` operands (mm)."""
+    return mm(x, p["w"], dt) + p["b"]
 
 
 def nerfw_apply_rays(
@@ -114,49 +115,49 @@ def nerfw_apply_rays(
     for i in range(cfg.D):
         if i in cfg.skips:
             w = params[f"xyz_{i}"]["w"]
-            y = (_mm(x0, w[:cfg.in_xyz], dt) + _mm(h, w[cfg.in_xyz:], dt)
+            y = (mm(x0, w[:cfg.in_xyz], dt) + mm(h, w[cfg.in_xyz:], dt)
                  + params[f"xyz_{i}"]["b"])
         else:
-            y = _dense(params[f"xyz_{i}"], h, dt)
+            y = dense(params[f"xyz_{i}"], h, dt)
         h = torch.relu(y)
         if dt != torch.float32:
             h = h.to(dt).float()
     W = cfg.W
-    static_sigma = Fn.softplus(_dense(params["static_sigma"], h, dt))
+    static_sigma = Fn.softplus(dense(params["static_sigma"], h, dt))
     if sigma_only:
         return static_sigma
 
-    xyz_final = _dense(params["xyz_final"], h, dt)
+    xyz_final = dense(params["xyz_final"], h, dt)
     wd = params["dir"]["w"]
-    per_ray = _mm(dir_emb, wd[W:W + cfg.in_dir], dt)
+    per_ray = mm(dir_emb, wd[W:W + cfg.in_dir], dt)
     if cfg.encode_appearance:
-        per_ray = per_ray + _mm(a_emb, wd[W + cfg.in_dir:], dt)
+        per_ray = per_ray + mm(a_emb, wd[W + cfg.in_dir:], dt)
     per_ray = per_ray + params["dir"]["b"]
 
     if not output_transient:
-        d = torch.relu(_mm(xyz_final, wd[:W], dt) + per_ray[:, None, :])
-        rgb = _dense(params["static_rgb"], d, dt)
+        d = torch.relu(mm(xyz_final, wd[:W], dt) + per_ray[:, None, :])
+        rgb = dense(params["static_rgb"], d, dt)
         if cfg.out_ch == 3:
             rgb = torch.sigmoid(rgb)
         return torch.cat([rgb, static_sigma], -1)
 
     wt = params["trans_0"]["w"]
-    t_per_ray = _mm(t_emb, wt[W:], dt) + params["trans_0"]["b"]
-    d = torch.relu(_mm(xyz_final, wd[:W], dt) + per_ray[:, None, :])
-    t = torch.relu(_mm(xyz_final, wt[:W], dt) + t_per_ray[:, None, :])
+    t_per_ray = mm(t_emb, wt[W:], dt) + params["trans_0"]["b"]
+    d = torch.relu(mm(xyz_final, wd[:W], dt) + per_ray[:, None, :])
+    t = torch.relu(mm(xyz_final, wt[:W], dt) + t_per_ray[:, None, :])
     if dt != torch.float32:
         d, t = d.to(dt).float(), t.to(dt).float()
     for i in (1, 2, 3):
-        t = torch.relu(_dense(params[f"trans_{i}"], t, dt))
+        t = torch.relu(dense(params[f"trans_{i}"], t, dt))
         if dt != torch.float32:
             t = t.to(dt).float()
-    rgb = _dense(params["static_rgb"], d, dt)
-    t_rgb = _dense(params["trans_rgb"], t, dt)
+    rgb = dense(params["static_rgb"], d, dt)
+    t_rgb = dense(params["trans_rgb"], t, dt)
     if cfg.out_ch == 3:
         rgb = torch.sigmoid(rgb)
         t_rgb = torch.sigmoid(t_rgb)
-    t_sigma = Fn.softplus(_dense(params["trans_sigma"], t, dt))
-    t_beta = Fn.softplus(_dense(params["trans_beta"], t, dt))
+    t_sigma = Fn.softplus(dense(params["trans_sigma"], t, dt))
+    t_beta = Fn.softplus(dense(params["trans_beta"], t, dt))
     return torch.cat([rgb, static_sigma, t_rgb, t_sigma, t_beta], -1)
 
 

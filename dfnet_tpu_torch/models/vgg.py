@@ -54,8 +54,8 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def _torch_conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
-                     device="cpu") -> Dict:
+def torch_conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
+                    device="cpu") -> Dict:
     """torch.nn.Conv2d default: kaiming-uniform(a=√5) weights -> bound
     √(6/((1+5)·fan_in)) = 1/√fan_in; bias uniform with the same bound.
     Weights OIHW, drawn from `gen` on the CPU."""
@@ -70,7 +70,7 @@ def init_vgg_params(gen: torch.Generator, layout, device="cpu") -> Dict:
     params = {}
     cin = 3
     for name, cout in [e for e in layout if e != "M"]:
-        params[name] = _torch_conv_init(gen, 3, 3, cin, cout, device)
+        params[name] = torch_conv_init(gen, 3, 3, cin, cout, device)
         cin = cout
     return params
 

@@ -65,6 +65,7 @@ import torch.nn.functional as Fn
 from dfnet_tpu_torch.models.embedder import Embedder
 from dfnet_tpu_torch.models.nerf_vanilla import VanillaNeRFConfig
 from dfnet_tpu_torch.models.nerfw import NeRFWConfig
+from dfnet_tpu_torch.render.sampling import nerfw_deltas, sample_pdf_blend, transmittance
 
 N_RAW = 9      # fine raw rows: rgb 0:3, sigma 3, t-rgb 4:7, t-sigma 7, t-beta 8
 N_STATIC = 4   # static raw rows: rgb 0:3, sigma 3
@@ -677,18 +678,12 @@ def _composite_plain(raw: torch.Tensor, z_all: torch.Tensor) -> torch.Tensor:
     ssig = Fn.softplus(raw[3])
     trgb = torch.sigmoid(raw[4:7])
     tsig = Fn.softplus(raw[7])
-    dz = torch.cat([z_all[:, 1:] - z_all[:, :-1],
-                    torch.full_like(z_all[:, :1], 1e2)], -1)
+    dz = nerfw_deltas(z_all)
     sa = 1.0 - torch.exp(-dz * ssig)
     ta = 1.0 - torch.exp(-dz * tsig)
     al = 1.0 - torch.exp(-dz * (ssig + tsig))
-
-    def excl_cumprod(keep):
-        return torch.cumprod(torch.cat([torch.ones_like(keep[:, :1]),
-                                        keep[:, :-1]], -1), -1)
-
-    trans = excl_cumprod(1.0 - al)
-    s_trans = excl_cumprod(1.0 - sa)
+    trans = transmittance(al)
+    s_trans = transmittance(sa)
     sw, tw, swo = sa * trans, ta * trans, sa * s_trans
     rgb = (sw * srgb + tw * trgb).sum(-1)
     return torch.cat([rgb, (al * trans).sum(-1)[None],
@@ -706,7 +701,7 @@ def proposal_z_plain(packed: Dict, rays_o, rays_d, spec: KernelSpec, S: int,
                      S_f: int, near: float, far: float, lam: float):
     """Plain version of proposal_z_rows: the sigma sweep at S uniform z,
     softplus, composite weights (1e2 terminal delta) and the blended-CDF
-    draw of render/fast.py::sample_pdf_blend -> (N, S_f) sorted z."""
+    draw of render/sampling.py::sample_pdf_blend -> (N, S_f) sorted z."""
     sigma = Fn.softplus(coarse_sigma_plain(packed, rays_o, rays_d, spec, S, near, far))
     return proposal_z_from_sigma(sigma, S_f, near, far, lam)
 
@@ -715,13 +710,10 @@ def proposal_z_from_sigma(sigma: torch.Tensor, S_f: int, near: float, far: float
                           lam: float) -> torch.Tensor:
     """proposal_z_plain after the sweep: (N, S) softplus(sigma) at the S
     uniform z -> (N, S_f) sorted z."""
-    from dfnet_tpu_torch.render.fast import _shifted_cumprod_lanes, sample_pdf_blend
-
     N, S = sigma.shape
     z = _uniform_z(S, near, far, False, sigma.device).expand(N, S)
-    deltas = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e2)], -1)
-    alphas = 1.0 - torch.exp(-deltas * sigma)
-    weights = alphas * _shifted_cumprod_lanes(alphas)
+    alphas = 1.0 - torch.exp(-nerfw_deltas(z) * sigma)
+    weights = alphas * transmittance(alphas)
     z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
     return sample_pdf_blend(z_mid, weights[:, 1:-1], S_f, lam).contiguous()
 

@@ -27,7 +27,7 @@ The vanilla NeRF (NeRFH=False) renders on the exact union only: the coarse
 net's sigma sweep places the samples (coarse_sigma_t on its sigma-only
 pack), the fine net's sweep is fine_raw_t on its static pack, whose
 channel-major rows volume.composite_vanilla composites. The other
-schedules keep it on the plain renderer (`fast_path_supported`).
+schedules keep it on the plain renderer (`kernels_serve`).
 
 A caller that renders many views with one set of weights passes a
 PackCache: the weights are packed for the kernels once per weight version
@@ -50,10 +50,12 @@ import torch.nn.functional as Fn
 from dfnet_tpu_torch.models.nerfw import lookup_hist_embedding
 from dfnet_tpu_torch.ops import nerf_kernels as nk
 from dfnet_tpu_torch.render.sampling import (
-    invert_cdf,
+    nerfw_deltas,
     sample_pdf,
+    sample_pdf_blend,
+    sample_pdf_culled,
     stratified_z_vals,
-    uniform,
+    transmittance,
 )
 from dfnet_tpu_torch.render.volume import (
     NeRFHModel,
@@ -66,7 +68,7 @@ from dfnet_tpu_torch.render.volume import (
 )
 from dfnet_tpu_torch.utils.profiling import annotate
 
-LANES = 128     # the JAX package's lane width; kept for its support gates
+LANES = 128     # the JAX package's lane width; kept for kernels_serve's envelope
 
 
 @dataclass(frozen=True)
@@ -154,86 +156,6 @@ class PackCache:
         return self._fast
 
 
-def kernel_ray_align(model, settings: RenderSettings,
-                     n_fine: Optional[int] = None,
-                     n_place: Optional[int] = None) -> int:
-    """Ray-count alignment the kernels need: 1, since they mask the ragged
-    edge of the last tile in-kernel."""
-    return 1
-
-
-def _shifted_cumprod_lanes(alphas):
-    """[1, 1-a0, (1-a0)(1-a1), ...] along the last (sample) axis."""
-    shifted = torch.cat([torch.ones_like(alphas[..., :1]),
-                         1.0 - alphas[..., :-1]], -1)
-    return torch.cumprod(shifted, -1)
-
-
-def sample_pdf_blend(bins, weights, n_total: int, lam: float):
-    """One-pass inverse-CDF draw of n_total SORTED samples from
-    (1-lam)*pdf(weights over bins) + lam*uniform(bins[0], bins[-1]).
-    bins: (N, M+1) sorted; weights: (N, M)."""
-    weights = weights.detach() + 1e-5
-    pdf = weights / torch.sum(weights, -1, keepdim=True)
-    cdf = torch.cumsum(pdf, -1)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
-    span = bins[..., -1:] - bins[..., :1]
-    cdf_u = (bins - bins[..., :1]) / torch.clamp(span, min=1e-10)
-    cdf = (1.0 - lam) * cdf + lam * cdf_u
-    u = torch.linspace(0.0, 1.0, n_total, device=bins.device)
-    u = u.expand(cdf.shape[:-1] + (n_total,))
-    return invert_cdf(cdf, bins, u, cdf[..., :1], bins[..., :1]).detach()
-
-
-def sample_pdf_culled(bins, weights, n_total: int, lam: float, q: float,
-                      gen: Optional[torch.Generator] = None):
-    """Empty-space-culled blended-CDF sampling: per ray, restrict both
-    mixture components to [z_lo, z_hi], the [q, 1-q] quantile range of the
-    placement-weights CDF padded by one bin, then draw n_total SORTED
-    samples from (1-lam)*pdf(restricted weights) + lam*uniform(z_lo, z_hi).
-    The truncated mass is <= 2q, which bounds the composite rgb error.
-    gen=None is the test-time (deterministic linspace) draw; with a
-    generator the draw is stratified (train time).
-    bins: (N, M) sorted; weights: (N, M-1)."""
-    weights = weights.detach() + 1e-5
-    pdf = weights / torch.sum(weights, -1, keepdim=True)
-    cdf = torch.cumsum(pdf, -1)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # (N, M)
-
-    # filled on the device: a tensor made from a host list would copy from
-    # pageable memory, which makes the host wait for the device every step
-    uq = torch.empty(cdf.shape[:-1] + (2,), dtype=torch.float32, device=bins.device)
-    uq[..., 0] = q
-    uq[..., 1] = 1.0 - q
-    zq = invert_cdf(cdf, bins, uq, cdf[..., :1], bins[..., :1])  # (N, 2)
-
-    pad = (bins[..., -1:] - bins[..., :1]) / (bins.shape[-1] - 1)
-    z_lo = torch.maximum(zq[..., 0:1] - pad, bins[..., :1])
-    z_hi = torch.minimum(zq[..., 1:2] + pad, bins[..., -1:])
-    z_hi = torch.maximum(z_hi, z_lo + 1e-4)
-
-    inside = (bins[..., 1:] >= z_lo) & (bins[..., :-1] <= z_hi)
-    wm = torch.where(inside, weights, torch.zeros_like(weights))
-    pdf_m = wm / torch.clamp(torch.sum(wm, -1, keepdim=True), min=1e-10)
-    cdf_w = torch.cumsum(pdf_m, -1)
-    cdf_w = torch.cat([torch.zeros_like(cdf_w[..., :1]), cdf_w], -1)
-    cdf_u = torch.clamp((bins - z_lo) / (z_hi - z_lo), 0.0, 1.0)
-    cdf_mix = (1.0 - lam) * cdf_w + lam * cdf_u
-
-    # scale u per ray by the flat top value of the mixture CDF so the last
-    # sample lands just inside z_hi, not on the far plane
-    if gen is None:
-        u = torch.linspace(0.0, 1.0, n_total, device=bins.device) * (1.0 - 1e-6)
-        u = u.expand(cdf_mix.shape[:-1] + (n_total,))
-    else:
-        xi = uniform(cdf_mix.shape[:-1] + (n_total,), gen, bins.device)
-        u = (torch.arange(n_total, dtype=torch.float32, device=bins.device)
-             + xi) / n_total * (1.0 - 1e-6)
-    u = u * cdf_mix[..., -1:]
-    return invert_cdf(cdf_mix, bins, u, cdf_mix[..., :1],
-                      bins[..., :1]).detach()
-
-
 def composite_soa(raw9, z_all, white_bkgd: bool = False) -> Dict:
     """Test-time NeRF-W compositing from channel-major pre-activation raw
     (9, N, S) + z (N, S); same math as volume.composite_nerfw with
@@ -244,12 +166,11 @@ def composite_soa(raw9, z_all, white_bkgd: bool = False) -> Dict:
     trgb = torch.sigmoid(raw9[4:7])
     tsig = Fn.softplus(raw9[7])
 
-    deltas = z_all[:, 1:] - z_all[:, :-1]
-    deltas = torch.cat([deltas, 1e2 * torch.ones_like(deltas[:, :1])], -1)
+    deltas = nerfw_deltas(z_all)
     static_alphas = 1.0 - torch.exp(-deltas * ssig)
     transient_alphas = 1.0 - torch.exp(-deltas * tsig)
     alphas = 1.0 - torch.exp(-deltas * (ssig + tsig))
-    trans = _shifted_cumprod_lanes(alphas)
+    trans = transmittance(alphas)
     weights_sum = (alphas * trans).sum(-1)
 
     static_rgb = (static_alphas * trans * srgb).sum(-1).t()
@@ -257,7 +178,7 @@ def composite_soa(raw9, z_all, white_bkgd: bool = False) -> Dict:
         static_rgb = static_rgb + (1.0 - weights_sum[:, None])
     rgb = static_rgb + (transient_alphas * trans * trgb).sum(-1).t()
 
-    static_w_ = static_alphas * _shifted_cumprod_lanes(static_alphas)
+    static_w_ = static_alphas * transmittance(static_alphas)
     depth = (static_w_ * z_all).sum(-1)
     disp = 1.0 / torch.clamp(depth / torch.clamp(weights_sum, min=1e-10),
                              min=1e-10)
@@ -349,10 +270,8 @@ def render_rays_fast(fast: FastNeRFH, rays_o, rays_d, hist,
         near = torch.full((n, 1), settings.near, device=rays_o.device)
         far = torch.full((n, 1), settings.far, device=rays_o.device)
         z_vals = stratified_z_vals(near, far, S, None, settings.lindisp, 0.0)
-        deltas = z_vals[:, 1:] - z_vals[:, :-1]
-        deltas = torch.cat([deltas, 1e2 * torch.ones_like(deltas[:, :1])], -1)
-        alphas = 1.0 - torch.exp(-deltas * sigma)
-        weights = alphas * _shifted_cumprod_lanes(alphas)
+        alphas = 1.0 - torch.exp(-nerfw_deltas(z_vals) * sigma)
+        weights = alphas * transmittance(alphas)
 
     with annotate("dfnet.render.sample"):
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
@@ -439,49 +358,51 @@ def _width_ok(w: int) -> bool:
     return not (w % 32 or (w > LANES and (w % LANES != 0 or w > 2 * LANES)))
 
 
-def vanilla_nets_supported(model: VanillaNeRFModel) -> bool:
-    """Whether the kernels can run both nets of a vanilla pair: viewdirs,
-    skips they can place (nk.vanilla_skip), widths as NeRF-H's and an
-    unwindowed PE that includes its input."""
-    F = model.embed_xyz.num_freqs
-    if model.embed_xyz.windowed or model.embed_dir.windowed or 6 * F + 3 > LANES:
-        return False
-    return all(c.use_viewdirs and nk.vanilla_skip(c) is not None and _width_ok(c.W)
-               and c.in_xyz == 6 * F + 3 for c in (model.cfg_coarse, model.cfg_fine))
+def kernels_serve(model, settings: RenderSettings, train: bool = False,
+                  cull_q: float = 0.0) -> bool:
+    """Whether the kernels serve this model under these settings: a
+    test-time render (render_image_fast; `cull_q` its culled sampler) or,
+    with `train`, a stage-1 step (render/fused_train.py; the cull is
+    settings.train_cull_q). The one gate of the kernel route.
 
-
-def fast_path_supported(model, settings: RenderSettings, cull_q: float = 0.0) -> bool:
-    """Whether the kernels can serve this model/settings combo. The NeRF-H
-    gates are the JAX package's, less its CPU and Mosaic-width gates, plus
-    the Hopper kernels' own: every width a multiple of 32 (16-row WMMA
-    tiles over the W/2-wide transient layers). A vanilla pair takes the
-    kernels on the exact-union schedule (cull_q 0) where
-    vanilla_nets_supported; the JAX package renders it plainly.
+    The NeRF-H envelope is the JAX package's, less its CPU and Mosaic-width
+    gates, plus the Hopper kernels' own: every width a multiple of 32
+    (16-row WMMA tiles over the W/2-wide transient layers). A vanilla pair
+    (the JAX package renders it plainly) takes the kernels unculled where
+    both nets fit: viewdirs, skips they can place (nk.vanilla_skip) and an
+    unwindowed PE that includes its input.
 
     The kernels always run bf16 matmuls with float32 accumulation
-    regardless of --precision; pass --fast_render false for the plain
-    float32 renderer."""
+    regardless of --precision; pass --fast_render false (--fused_train
+    false) for the plain float32 renderer (train step). On the CPU the
+    kernel wrappers run their plain versions."""
+    if not isinstance(model, (NeRFHModel, VanillaNeRFModel)):
+        return False
+    nets, F = (model.cfg_coarse, model.cfg_fine), model.embed_xyz.num_freqs
+    cull = settings.train_cull_q if train else cull_q
+    S = settings.N_samples
+    S_fine = S + settings.N_importance
     if isinstance(model, VanillaNeRFModel):
-        return (settings.N_importance > 0 and cull_q <= 0.0 and vanilla_nets_supported(model)
-                and _tileable(settings.N_samples)
-                and _tileable(settings.N_samples + settings.N_importance))
-    if not isinstance(model, NeRFHModel):
-        return False
-    if model.cfg_fine.out_ch != 3 or settings.N_importance <= 0:
-        return False
-    widths = [model.cfg_coarse.W, model.cfg_fine.W]
-    if model.cfg_proposal is not None:
-        widths.append(model.cfg_proposal.W)
-    if any(w % 32 for w in widths):
-        return False
-    if not (_width_ok(model.cfg_coarse.W) and _width_ok(model.cfg_fine.W)):
-        return False
-    if model.embed_xyz.windowed or model.embed_dir.windowed:
-        return False
-    if 6 * model.embed_xyz.num_freqs + 3 > LANES:
-        return False
-    return (_tileable(settings.N_samples)
-            and _tileable(settings.N_samples + settings.N_importance))
+        own = cull <= 0.0 and all(c.use_viewdirs and nk.vanilla_skip(c) is not None
+                                  and c.in_xyz == 6 * F + 3 for c in nets)
+    else:
+        fine, proposal = model.cfg_fine, model.cfg_proposal
+        own = (fine.out_ch == 3
+               # a render places its samples with the proposal net's sweep
+               and (train or proposal is None or proposal.W % 32 == 0)
+               # the train step's fine sweep is the transient pack
+               and (not train or fine.encode_transient))
+        # the train step's fine count: the importance samples alone, or the
+        # culled draw's total
+        if train and settings.fine_importance_only:
+            S_fine = settings.N_importance
+        if train and cull > 0.0 and settings.train_fine_total:
+            S_fine = settings.train_fine_total
+    return (own and settings.N_importance > 0
+            and all(_width_ok(c.W) for c in nets)
+            and not (model.embed_xyz.windowed or model.embed_dir.windowed)
+            and 6 * F + 3 <= LANES
+            and _tileable(S) and _tileable(S_fine))
 
 
 @torch.no_grad()
@@ -506,8 +427,6 @@ def render_image_fast(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel], 
                 fast = FastNeRFH.pack(params, model, use_proposal=use_proposal)
             else:
                 fast = packs.get(params, model, use_proposal)
-        align = kernel_ray_align(model, settings, n_fine, n_place)
-        chunk = max(chunk // align, 1) * align
         n, ro, rd = chunked_rays(H, W, focal, c2w, chunk, mesh)
         # (1, HB): one histogram for every ray; a vanilla pair reads none
         hist_b = None if hist is None else hist[None]

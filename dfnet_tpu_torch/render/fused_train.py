@@ -9,7 +9,9 @@ compositing, the loss and Adam stay plain PyTorch, operating on the
 kernels' channel-major (rows, N, S) output. A vanilla NeRF (NeRFH=False)
 runs both of its nets on their static vanilla packs
 (`render_rays_train_vanilla`), the fine one over the sorted union, and
-volume.composite_vanilla composites their rows.
+volume.composite_vanilla composites their rows. The trainer takes this
+route where `render/fast.py::kernels_serve(..., train=True)` admits the
+model and its train settings.
 
 Gradient contract (the JAX package's): cotangents reach the MLP params
 (through the differentiable packs) and the per-ray conditioning rows
@@ -34,15 +36,14 @@ import torch.nn.functional as Fn
 
 from dfnet_tpu_torch.models.nerfw import lookup_hist_embedding
 from dfnet_tpu_torch.ops import nerf_kernels as nk
-from dfnet_tpu_torch.render.fast import (
-    LANES,
-    _shifted_cumprod_lanes,
-    _tileable,
-    _width_ok,
+from dfnet_tpu_torch.render.sampling import (
+    gaussian,
+    nerfw_deltas,
+    sample_pdf,
     sample_pdf_culled,
-    vanilla_nets_supported,
+    stratified_z_vals,
+    transmittance,
 )
-from dfnet_tpu_torch.render.sampling import gaussian, sample_pdf, stratified_z_vals
 from dfnet_tpu_torch.render.volume import (
     NeRFHModel,
     RenderSettings,
@@ -85,11 +86,6 @@ def raw_sweep(packed: Dict, rays_o, rays_d, z_all, dpt, spec: nk.KernelSpec):
 # train-time composites of the channel-major raw rows
 # ---------------------------------------------------------------------------
 
-def _deltas(z):
-    d = z[:, 1:] - z[:, :-1]
-    return torch.cat([d, 1e2 * torch.ones_like(d[:, :1])], -1)
-
-
 def composite_static_train(raw4, z_vals, white_bkgd: bool = False,
                            raw_noise: Optional[torch.Tensor] = None) -> Dict:
     """Coarse train composite from static raw rows [rgb 0:3, sigma 3]
@@ -100,8 +96,8 @@ def composite_static_train(raw4, z_vals, white_bkgd: bool = False,
     sig = Fn.softplus(raw4[3])                        # (N, S)
     if raw_noise is not None:
         sig = torch.relu(sig + raw_noise)
-    alphas = 1.0 - torch.exp(-_deltas(z_vals) * sig)
-    weights = alphas * _shifted_cumprod_lanes(alphas)
+    alphas = 1.0 - torch.exp(-nerfw_deltas(z_vals) * sig)
+    weights = alphas * transmittance(alphas)
     acc = weights.sum(-1)
     rgb_map = (weights * rgb).sum(-1).t()
     if white_bkgd:
@@ -124,11 +120,11 @@ def composite_nerfw_train(raw9, z_all, beta_min: float,
     trgb = torch.sigmoid(raw9[4:7])
     tsig = Fn.softplus(raw9[7])
     tbeta = Fn.softplus(raw9[8])
-    deltas = _deltas(z_all)
+    deltas = nerfw_deltas(z_all)
     static_alphas = 1.0 - torch.exp(-deltas * ssig)
     transient_alphas = 1.0 - torch.exp(-deltas * tsig)
     alphas = 1.0 - torch.exp(-deltas * (ssig + tsig))
-    trans = _shifted_cumprod_lanes(alphas)
+    trans = transmittance(alphas)
     weights = alphas * trans
     acc = weights.sum(-1)
     transient_w = transient_alphas * trans
@@ -147,48 +143,6 @@ def composite_nerfw_train(raw9, z_all, beta_min: float,
 # ---------------------------------------------------------------------------
 # fused train render
 # ---------------------------------------------------------------------------
-
-def train_ray_align(settings: RenderSettings) -> int:
-    """Ray-batch alignment the train kernels need: 1, since every kernel
-    masks the ragged edge of its last tile."""
-    return 1
-
-
-def fused_train_supported(model, settings: RenderSettings, n_rand: int) -> bool:
-    """Whether the kernels can serve this train configuration: the JAX
-    package's envelope (transient NeRF-H, out_ch 3, widths up to 2*LANES
-    in LANES steps, no windowed PE, tileable sample counts) less its CPU
-    and Mosaic-width gates, plus the Hopper kernels' own: every width a
-    multiple of 32. A vanilla pair takes the kernels where its nets do
-    (fast.vanilla_nets_supported) at tileable N_samples and union, and not
-    under the culled schedule. On the CPU the wrappers run their plain
-    versions."""
-    if isinstance(model, VanillaNeRFModel):
-        S = settings.N_samples
-        return (settings.N_importance > 0 and settings.train_cull_q <= 0.0
-                and vanilla_nets_supported(model)
-                and n_rand % train_ray_align(settings) == 0
-                and _tileable(S) and _tileable(S + settings.N_importance))
-    if not isinstance(model, NeRFHModel):
-        return False
-    if model.cfg_fine.out_ch != 3 or settings.N_importance <= 0:
-        return False
-    if not model.cfg_fine.encode_transient:
-        return False
-    if not (_width_ok(model.cfg_coarse.W) and _width_ok(model.cfg_fine.W)):
-        return False
-    if model.embed_xyz.windowed or model.embed_dir.windowed:
-        return False
-    if 6 * model.embed_xyz.num_freqs + 3 > LANES:
-        return False
-    S = settings.N_samples
-    S_all = S + settings.N_importance
-    if settings.fine_importance_only:
-        S_all = settings.N_importance
-    if settings.train_cull_q > 0.0 and settings.train_fine_total:
-        S_all = settings.train_fine_total
-    return n_rand % train_ray_align(settings) == 0 and _tileable(S) and _tileable(S_all)
-
 
 def render_rays_train_fused(params: Dict, model: NeRFHModel, rays_o, rays_d,
                             hist, settings: RenderSettings,

@@ -1,5 +1,9 @@
 """Ray sampling: stratified coarse samples and inverse-CDF hierarchical
-(importance) resampling (port of dfnet_tpu/render/sampling.py).
+(importance) resampling (port of dfnet_tpu/render/sampling.py), with the
+blended and culled draws of the kernel schedules, and the two primitives
+every NeRF-W composite shares: the 1e2-terminal deltas and the
+transmittance product. This is the render layer's leaf: it imports only
+torch, and the kernel layer (ops/) may import it.
 
 Random draws take an explicit `torch.Generator` that lives on the device
 of the tensors they are drawn for (`torch.Generator(device=...)`), or a
@@ -118,3 +122,83 @@ def sample_pdf(bins, weights, N_importance: int,
     else:
         u = uniform(cdf.shape[:-1] + (N_importance,), gen, cdf.device)
     return invert_cdf(cdf, bins, u, cdf[..., :1], bins[..., :1]).detach()
+
+
+def sample_pdf_blend(bins, weights, n_total: int, lam: float):
+    """One-pass inverse-CDF draw of n_total SORTED samples from
+    (1-lam)*pdf(weights over bins) + lam*uniform(bins[0], bins[-1]).
+    bins: (N, M+1) sorted; weights: (N, M)."""
+    weights = weights.detach() + 1e-5
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    span = bins[..., -1:] - bins[..., :1]
+    cdf_u = (bins - bins[..., :1]) / torch.clamp(span, min=1e-10)
+    cdf = (1.0 - lam) * cdf + lam * cdf_u
+    u = torch.linspace(0.0, 1.0, n_total, device=bins.device)
+    u = u.expand(cdf.shape[:-1] + (n_total,))
+    return invert_cdf(cdf, bins, u, cdf[..., :1], bins[..., :1]).detach()
+
+
+def sample_pdf_culled(bins, weights, n_total: int, lam: float, q: float,
+                      gen: Optional[torch.Generator] = None):
+    """Empty-space-culled blended-CDF sampling: per ray, restrict both
+    mixture components to [z_lo, z_hi], the [q, 1-q] quantile range of the
+    placement-weights CDF padded by one bin, then draw n_total SORTED
+    samples from (1-lam)*pdf(restricted weights) + lam*uniform(z_lo, z_hi).
+    The truncated mass is <= 2q, which bounds the composite rgb error.
+    gen=None is the test-time (deterministic linspace) draw; with a
+    generator the draw is stratified (train time).
+    bins: (N, M) sorted; weights: (N, M-1)."""
+    weights = weights.detach() + 1e-5
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # (N, M)
+
+    # filled on the device: a tensor made from a host list would copy from
+    # pageable memory, which makes the host wait for the device every step
+    uq = torch.empty(cdf.shape[:-1] + (2,), dtype=torch.float32, device=bins.device)
+    uq[..., 0] = q
+    uq[..., 1] = 1.0 - q
+    zq = invert_cdf(cdf, bins, uq, cdf[..., :1], bins[..., :1])  # (N, 2)
+
+    pad = (bins[..., -1:] - bins[..., :1]) / (bins.shape[-1] - 1)
+    z_lo = torch.maximum(zq[..., 0:1] - pad, bins[..., :1])
+    z_hi = torch.minimum(zq[..., 1:2] + pad, bins[..., -1:])
+    z_hi = torch.maximum(z_hi, z_lo + 1e-4)
+
+    inside = (bins[..., 1:] >= z_lo) & (bins[..., :-1] <= z_hi)
+    wm = torch.where(inside, weights, torch.zeros_like(weights))
+    pdf_m = wm / torch.clamp(torch.sum(wm, -1, keepdim=True), min=1e-10)
+    cdf_w = torch.cumsum(pdf_m, -1)
+    cdf_w = torch.cat([torch.zeros_like(cdf_w[..., :1]), cdf_w], -1)
+    cdf_u = torch.clamp((bins - z_lo) / (z_hi - z_lo), 0.0, 1.0)
+    cdf_mix = (1.0 - lam) * cdf_w + lam * cdf_u
+
+    # scale u per ray by the flat top value of the mixture CDF so the last
+    # sample lands just inside z_hi, not on the far plane
+    if gen is None:
+        u = torch.linspace(0.0, 1.0, n_total, device=bins.device) * (1.0 - 1e-6)
+        u = u.expand(cdf_mix.shape[:-1] + (n_total,))
+    else:
+        xi = uniform(cdf_mix.shape[:-1] + (n_total,), gen, bins.device)
+        u = (torch.arange(n_total, dtype=torch.float32, device=bins.device)
+             + xi) / n_total * (1.0 - 1e-6)
+    u = u * cdf_mix[..., -1:]
+    return invert_cdf(cdf_mix, bins, u, cdf_mix[..., :1],
+                      bins[..., :1]).detach()
+
+
+def nerfw_deltas(z):
+    """(N, S) intervals between the samples z (N, S), the last one 1e2
+    long: NeRF-W's terminal delta, not scaled by |rays_d|."""
+    d = z[..., 1:] - z[..., :-1]
+    return torch.cat([d, 1e2 * torch.ones_like(d[..., :1])], -1)
+
+
+def transmittance(alphas):
+    """[1, 1-a0, (1-a0)(1-a1), ...] along the last (sample) axis: the
+    transmittance before each sample."""
+    shifted = torch.cat([torch.ones_like(alphas[..., :1]),
+                         1.0 - alphas[..., :-1]], -1)
+    return torch.cumprod(shifted, -1)

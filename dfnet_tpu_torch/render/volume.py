@@ -4,14 +4,14 @@ NeRF-W compositing (1e2 terminal delta, no ray-norm scaling of deltas,
 shifted-cumprod transmittance; at test time rgb stays the static +
 transient composite while depth/disp re-composite static-only) and the
 coarse -> fine pipeline at train and test settings. This is the plain
-renderer that `render/fast.py::fast_path_supported` and
-`render/fused_train.py::fused_train_supported` fall back to; it is
+renderer that the kernel routes (render/fast.py, render/fused_train.py)
+fall back to where `render/fast.py::kernels_serve` refuses a model; it is
 differentiable in the params and the rays.
 
 The vanilla NeRF (NeRFH=False) has its own compositing (composite_vanilla:
 1e10 terminal delta, deltas scaled by |rays_d|) and pipeline
 (render_rays_vanilla); the full-image renders dispatch on the model. The
-kernel gates admit it too (the JAX package's take NeRFHModel only): its
+kernel gate admits it too (the JAX package's takes NeRFHModel only): its
 stage-1 step and test render then take render/fused_train.py and
 render/fast.py, and this is its plain route.
 """
@@ -32,7 +32,14 @@ from dfnet_tpu_torch.models.nerfw import (
 )
 from dfnet_tpu_torch.parallel.mesh import gather_rows, row_counts, shard_rows
 from dfnet_tpu_torch.render.rays import get_rays
-from dfnet_tpu_torch.render.sampling import gaussian, sample_pdf, stratified_z_vals
+from dfnet_tpu_torch.render.sampling import (
+    gaussian,
+    nerfw_deltas,
+    sample_pdf,
+    sample_pdf_culled,
+    stratified_z_vals,
+    transmittance,
+)
 
 
 @dataclass(frozen=True)
@@ -72,12 +79,6 @@ class NeRFHModel:
     embed_proposal: Optional[Embedder] = None
 
 
-def _shifted_cumprod(alphas):
-    """[1, 1-a0, (1-a0)(1-a1), ...]: transmittance before each sample."""
-    shifted = torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas], -1)
-    return torch.cumprod(shifted[:, :-1], -1)
-
-
 def composite_nerfw(raw, z_vals, output_transient: bool, beta_min: float = 0.1,
                     white_bkgd: bool = False, test_time: bool = False,
                     raw_noise: Optional[torch.Tensor] = None,
@@ -86,12 +87,11 @@ def composite_nerfw(raw, z_vals, output_transient: bool, beta_min: float = 0.1,
     raw: (N, S, C) with C = out_ch+1 (static), 2*out_ch+3 (transient) or
     1 (sigma_only). raw_noise (N, S) is added to the static sigma (then
     relu'd) of a static composite."""
-    deltas = z_vals[:, 1:] - z_vals[:, :-1]
-    deltas = torch.cat([deltas, 1e2 * torch.ones_like(deltas[:, :1])], -1)
+    deltas = nerfw_deltas(z_vals)
 
     if sigma_only:
         alphas = 1.0 - torch.exp(-deltas * raw[..., 0])
-        weights = alphas * _shifted_cumprod(alphas)
+        weights = alphas * transmittance(alphas)
         return {"weights": weights, "acc": weights.sum(-1)}
 
     static_rgbs = raw[..., :out_ch]
@@ -109,7 +109,7 @@ def composite_nerfw(raw, z_vals, output_transient: bool, beta_min: float = 0.1,
             sig = torch.relu(sig + raw_noise)
         alphas = 1.0 - torch.exp(-deltas * sig)
 
-    trans = _shifted_cumprod(alphas)
+    trans = transmittance(alphas)
     weights = alphas * trans
     weights_sum = weights.sum(-1)
     out: Dict = {"weights": weights, "acc": weights_sum}
@@ -126,7 +126,7 @@ def composite_nerfw(raw, z_vals, output_transient: bool, beta_min: float = 0.1,
                    transient_sigmas=transient_sigmas,
                    rgb_static=static_rgb_map, rgb_transient=transient_rgb_map)
         if test_time:
-            s_trans = _shifted_cumprod(static_alphas)
+            s_trans = transmittance(static_alphas)
             static_w_ = static_alphas * s_trans
             depth = (static_w_ * z_vals).sum(-1)
             out["rgb_fine_static"] = (static_w_[..., None] * static_rgbs).sum(-2)
@@ -192,8 +192,6 @@ def render_rays(params: Dict, model: NeRFHModel, rays_o: torch.Tensor,
 
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     if settings.train_cull_q > 0.0 and not settings.test_time:
-        from dfnet_tpu_torch.render.fast import sample_pdf_culled
-
         S, I = settings.N_samples, settings.N_importance
         z_all = sample_pdf_culled(z_mid, comp_c["weights"][..., 1:-1],
                                   settings.train_fine_total or (S + I),

@@ -42,7 +42,7 @@ from dfnet_tpu_torch.models.dfnet import conv_precision
 from dfnet_tpu_torch.render import rays as rays_mod
 from dfnet_tpu_torch.render import volume
 from dfnet_tpu_torch.training import dm_trainer, nerf_renderer, parity
-from dfnet_tpu_torch.training.nerf_trainer import _tree_map
+from dfnet_tpu_torch.training.nerf_trainer import tree_map
 
 
 def _get_rays64(H, W, focal, c2w):
@@ -76,10 +76,10 @@ def float64_mode():
 
 def _to64(tr) -> None:
     double = lambda t: t.double()
-    tr.nerf.params = _tree_map(double, tr.nerf.params)
-    tr.feat_params = _tree_map(double, tr.feat_params)
-    tr.feat_state = _tree_map(double, tr.feat_state)
-    tr.net.state = _tree_map(double, tr.net.state)
+    tr.nerf.params = tree_map(double, tr.nerf.params)
+    tr.feat_params = tree_map(double, tr.feat_params)
+    tr.feat_state = tree_map(double, tr.feat_state)
+    tr.net.state = tree_map(double, tr.net.state)
     with torch.no_grad():
         for _, t in tr._named:
             t.data = t.data.double()

@@ -33,7 +33,7 @@ import torch
 from dfnet_tpu_torch.config import parse_args
 from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
 from dfnet_tpu_torch.device import resolve_device
-from dfnet_tpu_torch.render.fast import fast_path_supported, render_image_fast
+from dfnet_tpu_torch.render.fast import kernels_serve, render_image_fast
 from dfnet_tpu_torch.render.volume import render_image
 from dfnet_tpu_torch.training.checkpoints import params_to_numpy, save_pytree
 from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer
@@ -83,15 +83,15 @@ def train(cfg, scene, epochs: int) -> NeRFTrainer:
 
 def val_psnrs(tr: NeRFTrainer, scene) -> Dict[str, float]:
     """Val PSNR of each render path on the trainer's params (test
-    settings); the kernel paths only where fast_path_supported."""
+    settings); the kernel paths only where kernels_serve."""
     params, model, settings = tr.params, tr.model, tr.settings_test
     H, W, focal = scene.H, scene.W, scene.focal
     dev = tr.device
     out = {}
     for label, kw in PATHS.items():
-        if kw is not None and not fast_path_supported(model, settings):
+        if kw is not None and not kernels_serve(model, settings):
             print("kernel paths unsupported for this config (see "
-                  "fast_path_supported): plain render only", flush=True)
+                  "kernels_serve): plain render only", flush=True)
             break
         ps = []
         for i in range(len(scene.val)):

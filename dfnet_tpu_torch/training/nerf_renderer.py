@@ -58,7 +58,7 @@ from dfnet_tpu_torch.training.checkpoints import (
     load_pytree,
     params_from_numpy,
 )
-from dfnet_tpu_torch.training.nerf_trainer import _tree_map
+from dfnet_tpu_torch.training.nerf_trainer import tree_map
 
 
 class FrozenNeRF:
@@ -80,15 +80,17 @@ class FrozenNeRF:
                 cfg, torch.Generator().manual_seed(cfg.rng_seed), self.device)
             params = params if params is not None else init_params
         self.model = model
-        self.params = _tree_map(torch.Tensor.detach, params)
+        self.params = tree_map(torch.Tensor.detach, params)
         self.settings = render_settings(cfg, near, far, test=True)
         tiny = cfg.tinyimg
         ts = cfg.tinyscale if tiny else 1.0
         self.rh, self.rw = (int(self.H // ts), int(self.W // ts)) if tiny else (self.H, self.W)
         self.rf = self.focal / ts if tiny else self.focal
         self.chunk = min(cfg.chunk, self.rh * self.rw)
+        # a vanilla pair stays on the plain renderer in stages 2 and 3, as in
+        # the JAX package (ROADMAP.md, Queue 3), though the gate admits it
         self.uses_fast_render = bool(cfg.fast_render and isinstance(model, NeRFHModel)
-                                     and fast_mod.fast_path_supported(model, self.settings))
+                                     and fast_mod.kernels_serve(model, self.settings))
         self.packs = fast_mod.PackCache()
 
     @property

@@ -11,8 +11,8 @@ schedule (--train_cull_q) with --train_cull_warmup E, epochs below E train
 at the reference schedule's sampling first (`NeRFTrainer.schedule`), each
 schedule on the kernel step where it can serve. Splits render at test
 settings through render/fast.py or the plain renderer. A vanilla NeRF
-(NeRFH=False) takes the same two routes, each where its gate admits it
-(`fused_train_supported`, `fast_path_supported`); `ROUTES` counts the
+(NeRFH=False) takes the same two routes, each where the one gate
+(`render/fast.py::kernels_serve`) admits it; `ROUTES` counts the
 steps and views each route served. Checkpoints hold the params and the
 Adam state in the JAX package's layout.
 
@@ -62,10 +62,8 @@ from dfnet_tpu_torch.models.losses import (
 )
 from dfnet_tpu_torch.models.nerfw import nerfw_apply_rays
 from dfnet_tpu_torch.parallel.mesh import all_reduce_grads_, is_main, shard_rows
-from dfnet_tpu_torch.render.fused_train import (
-    fused_train_supported,
-    render_rays_train_fused,
-)
+from dfnet_tpu_torch.render import fast as fast_mod
+from dfnet_tpu_torch.render.fused_train import render_rays_train_fused
 from dfnet_tpu_torch.render.rays import get_rays
 from dfnet_tpu_torch.render.sampling import RowShard
 from dfnet_tpu_torch.render.volume import (
@@ -126,8 +124,9 @@ def named_leaves(tree: Dict, prefix: str = "") -> List[Tuple[str, torch.Tensor]]
     return out
 
 
-def _tree_map(fn: Callable, tree: Dict) -> Dict:
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+def tree_map(fn: Callable, tree: Dict) -> Dict:
+    """fn applied to every leaf of a nested dict of tensors."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
 
 
@@ -142,7 +141,7 @@ def stage1_loss(params: Dict, model: Union[NeRFHModel, VanillaNeRFModel], cfg: C
     (which carry no gradient, so only the proposal learns from it).
     `epoch` sets the frequency window of the plain render's embedders
     under --reduce_embedding 2 and is dropped otherwise, as in the
-    reference; the kernel render never windows (fused_train_supported
+    reference; the kernel render never windows (fast.kernels_serve
     refuses a windowed embedder)."""
     ep = epoch if cfg.reduce_embedding == 2 else None
     ROUTES["kernel_steps" if fused else "plain_steps"] += 1
@@ -204,9 +203,16 @@ class NeRFTrainer:
         self._build_render()
 
     def _fused_for(self, settings: RenderSettings) -> bool:
-        cfg = self.cfg
-        return bool(cfg.fused_train and cfg.reduce_embedding != 2
-                    and fused_train_supported(self.model, settings, cfg.N_rand))
+        return bool(self.cfg.fused_train and self._kernels_serve(settings, train=True))
+
+    def _kernels_serve(self, settings: RenderSettings, train: bool,
+                       cull_q: float = 0.0) -> bool:
+        """fast.kernels_serve, and not under --reduce_embedding 2: the JAX
+        trainer's rule, kept although the gate refuses the windowed
+        embedders that flag builds, because under --i_embed -1 it builds
+        identity embedders, which are not windowed."""
+        return (self.cfg.reduce_embedding != 2
+                and fast_mod.kernels_serve(self.model, settings, train, cull_q))
 
     def schedule(self, epoch: float) -> Tuple[RenderSettings, bool]:
         """(train settings, kernel step?) in force at this epoch: the
@@ -220,8 +226,8 @@ class NeRFTrainer:
 
     def _set_params(self, params: Dict) -> None:
         """Adopt a params tree as trainable leaves with a fresh Adam."""
-        self.params = _tree_map(lambda t: t.detach().float().requires_grad_(True),
-                                params)
+        self.params = tree_map(lambda t: t.detach().float().requires_grad_(True),
+                               params)
         self._named = named_leaves(self.params)
         self.optimizer = torch.optim.Adam(
             [t for _, t in self._named], lr=self.cfg.lrate,
@@ -317,7 +323,6 @@ class NeRFTrainer:
         eh, ew, ef = H // rf, W // rf, focal / rf
         chunk = min(cfg.chunk, eh * ew)
 
-        from dfnet_tpu_torch.render import fast as fast_mod
         from dfnet_tpu_torch.render.volume import render_image
 
         mesh = self.mesh
@@ -325,9 +330,8 @@ class NeRFTrainer:
         # package (its render_image_sharded takes no fast_render flag)
         cull = fast_mod.cull_schedule_kwargs(cfg)
         self.uses_fast_render = ((cfg.fast_render or mesh is not None)
-                                 and cfg.reduce_embedding != 2
-                                 and fast_mod.fast_path_supported(
-                                     model, self.settings_test, cull["cull_q"]))
+                                 and self._kernels_serve(self.settings_test, train=False,
+                                                         cull_q=cull["cull_q"]))
         if self.uses_fast_render:
             packs = fast_mod.PackCache()
 
@@ -406,8 +410,8 @@ class NeRFTrainer:
         paths = {id(t): path for path, t in self._named}
         return adam_state_tree(
             count, self.optimizer.param_groups[0]["lr"],
-            _tree_map(lambda t: mu[paths[id(t)]], self.params),
-            _tree_map(lambda t: nu[paths[id(t)]], self.params))
+            tree_map(lambda t: mu[paths[id(t)]], self.params),
+            tree_map(lambda t: nu[paths[id(t)]], self.params))
 
     def _restore_opt_state(self, opt) -> bool:
         """Adopt a checkpoint's Adam state; False (optimizer stays cold)

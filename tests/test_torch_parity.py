@@ -3,6 +3,8 @@ reproduce reference-architecture outputs numerically. The torch modules
 here are built from the architecture spec (SURVEY.md §2/L2-L3), then
 their weights are converted with dfnet_tpu.convert and compared."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 

@@ -15,6 +15,8 @@ tests/test_torch_port_train.py; here the split is also carried into the
 params and held against the JAX package's raw sweep VJP.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -1,5 +1,7 @@
 """The port's stage-1 CLI and its import boundary, on the CPU."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import os
 import subprocess
 import sys

@@ -19,6 +19,8 @@ so what surrounds its arithmetic is checked in Python:
   order), also where the transmittance underflows to zero.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,8 @@ triplet axis picked when triplet_ref_axis is unset, JAX's first-step loss
 within the golden bar), and --vgg_init_path (JAX's converted encoder,
 exactly)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import subprocess
 import sys
 

@@ -2,6 +2,8 @@
 numpy inputs (from a seed) go through both packages. Tolerances are
 float32 round-off unless stated."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 import glob
 
@@ -106,7 +108,7 @@ def _placement(N=16, M=63, seed=3):
 def test_sample_pdf_blend():
     bins, w = _placement()
     want = _np(jfast.sample_pdf_blend(jnp.asarray(bins), jnp.asarray(w), 96, 1 / 3))
-    got = tfast.sample_pdf_blend(_t(bins), _t(w), 96, 1 / 3).numpy()
+    got = tsampling.sample_pdf_blend(_t(bins), _t(w), 96, 1 / 3).numpy()
     np.testing.assert_allclose(got, want, atol=2e-3)
     assert (np.diff(got, axis=-1) >= -1e-6).all()
 
@@ -115,7 +117,7 @@ def test_sample_pdf_culled():
     bins, w = _placement(seed=4)
     want = _np(jfast.sample_pdf_culled(jnp.asarray(bins), jnp.asarray(w),
                                        24, lam=0.5, q=2e-3))
-    got = tfast.sample_pdf_culled(_t(bins), _t(w), 24, lam=0.5,
+    got = tsampling.sample_pdf_culled(_t(bins), _t(w), 24, lam=0.5,
                                   q=2e-3).numpy()
     np.testing.assert_allclose(got, want, atol=2e-3)
     assert (np.diff(got, axis=-1) >= -1e-6).all()

@@ -8,6 +8,8 @@ the port writer's (scripts/replica.py): images bit-equal, poses within
 1e-6, hists, gt_idx, hwf, near/far, world_setup and a saved stats file
 equal."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import json
 import os
 import os.path as osp

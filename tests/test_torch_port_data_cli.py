@@ -5,6 +5,8 @@ W=32 and epochs 0-1; the prefetcher (data/prefetch.py) on the CPU; and a
 stage-2 and a stage-3 run with --prefetch 2 equal to the same run
 without it, bit for bit."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import glob
 import json
 import os.path as osp

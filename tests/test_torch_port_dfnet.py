@@ -6,6 +6,8 @@ Tolerances: float32 at atol/rtol 1e-4 (the two packages sum the convs in
 other orders); bf16 under the JAX package's own bf16 bars
 (dfnet_tpu_torch/training/parity.py, from tests/test_feature_bf16.py)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

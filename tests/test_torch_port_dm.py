@@ -12,6 +12,8 @@ that F predicts near-rotations with distinct singular values. The scene
 has a non-identity world setup. Tolerances are stated where they are
 used; the float32 gradient bars are dfnet_tpu_torch/training/parity.py's."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

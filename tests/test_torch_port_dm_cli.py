@@ -6,6 +6,8 @@ checkpoint gives the median error that the JAX package's
 and `.tar` NeRF give the losses of the `.npz` files they were exported
 from; --mesh_shape 0 on the CPU refuses."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import contextlib
 import io
 import json

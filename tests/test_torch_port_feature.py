@@ -5,6 +5,8 @@ and the RVS poses, the golden stage-2 step, and one epoch of both
 trainers from the same init. Tolerances are stated where they are used;
 the golden step's are dfnet_tpu_torch/training/parity.py's."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 import os
 

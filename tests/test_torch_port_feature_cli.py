@@ -4,6 +4,8 @@ JAX-written DFNet checkpoint gives the JAX package's median error,
 --render_feature_only, a reference `.pt` and --vgg_init_path run, and
 --mesh_shape 0 on the CPU refuses."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import os
 import re
 

@@ -7,6 +7,8 @@ non-identity world setup. The port's no-grad renders take its kernel path
 path's bar, tests/test_fast_render.py:119), pose gradients 3e-2 of their
 scale, the resizes 1e-5."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

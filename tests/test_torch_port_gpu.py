@@ -23,6 +23,8 @@ exact below 2^24), the bf16 one under ops/mlp_stack.py's
 bf16_stack_agreement (at most 1% of outputs differ at all, each within two
 bf16 steps plus 1/8 of the output's RMS)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,8 @@ D=2 case), at most two ray tiles of the JAX kernel. Tolerances: raw
 pre-activation outputs 2e-2, composited outputs 3e-2 (bf16 operands in
 both, rounded at other places)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

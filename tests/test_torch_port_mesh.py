@@ -14,6 +14,8 @@ fused-train bars of tests/test_fused_train.py: the loss within rtol 1e-3,
 grads within 3e-2 * scale + 1e-7. The control, where every rank skips the
 grads' all-reduce, must miss the world-1 bar."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

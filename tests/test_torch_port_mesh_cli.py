@@ -16,6 +16,8 @@ tests/test_torch_port_mesh_dm.py. And the repair: the stage-1
 CLI at --mesh_shape 2 runs two ranks (the parent's trained on one device
 and said nothing)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import contextlib
 import copy
 import json

@@ -20,6 +20,8 @@ splits the render over make_mesh(2) (run eagerly, as
 tests/test_torch_port_dm.py runs it), parity.dm_agreement. The control,
 every rank skipping the grads' all-reduce, must miss the world-1 bar."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,8 @@ tests/test_torch_port_feature.py runs the golden step): that test's config
 and init and the golden stage-2 bars. The control, every rank skipping
 the grads' all-reduce, must miss the world-1 bar."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import os
 import tempfile
 

@@ -8,6 +8,8 @@ kernels. Tolerances are the JAX package's own: fine z 2e-3
 stacks are held under ops/mlp_stack.py's bf16_stack_agreement, which must
 tell a sound stack from each of the probe's faulty controls."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import functools
 
 import jax

@@ -8,6 +8,8 @@ next view pack anew.
 Imports neither JAX nor dfnet_tpu. Tiny sizes: D=2 W=32 NeRF-H, 16+16
 samples, 12x16 views."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

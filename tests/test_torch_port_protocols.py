@@ -8,6 +8,8 @@ QUALITY.md's 0.2 dB of the plain render, and the stage-2 leg), and
 quality_stage2_precision at one epoch per precision on the shipped
 301-epoch asset."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,8 @@ interpret mode, the plain renderers against each other, and the val PSNR
 of the trained asset. The JAX val PSNR of the stage-1 CLI's --render_test
 is the figure chip_smoke.py holds the port's GPU run to."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,7 @@ from dfnet_tpu.render.volume import render_image as jax_render_image
 from dfnet_tpu_torch.config import parse_args
 from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
 from dfnet_tpu_torch.models.factory import create_nerfh, render_settings
-from dfnet_tpu_torch.render.fast import fast_path_supported, render_image_fast
+from dfnet_tpu_torch.render.fast import kernels_serve, render_image_fast
 from dfnet_tpu_torch.render.volume import render_image
 from dfnet_tpu_torch.training.checkpoints import params_from_numpy
 
@@ -45,7 +47,7 @@ def test_render_image_fast_matches_jax_interpret(small):
     jcfg, jmodel, jparams, cfg, model, params, c2w, hist = small
     st_j = jax_render_settings(jcfg, 0.5, 3.5, test=True)
     st = render_settings(cfg, 0.5, 3.5, test=True)
-    assert fast_path_supported(model, st)
+    assert kernels_serve(model, st)
     H, W, focal = 6, 8, 8.0
     want = jax_render_image_fast(jparams, jmodel, jnp.asarray(c2w),
                                  jnp.asarray(hist), H, W, focal, st_j,

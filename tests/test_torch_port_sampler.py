@@ -26,6 +26,8 @@ cannot run here, so what surrounds their arithmetic is checked in Python:
   the swizzle rule puts it.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,8 @@ the card:
 Tiny sizes: D=2 W=32 NeRF-H on 8x8 (train) and 12x16 (render) views; the
 DM step is parity.dm_trainer's (48x64 frames, DFNet at full width)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import contextlib
 
 import pytest

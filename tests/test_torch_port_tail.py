@@ -7,6 +7,8 @@ the JAX package calls) and vis_pose, drawn in numpy, against the
 matplotlib figure the JAX package saves (the strip's interior within one
 level a channel; each dot at matplotlib's projected position)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import sys
 
 import cv2

@@ -10,6 +10,8 @@ the spiral (JAX's poses exactly, its frames within the rendered-rgb bar
 files laid out as JAX lays them out). Small sizes: D=2 W=32 NeRFs on the
 48x64 synthetic scene."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import dataclasses
 import json
 import os

@@ -11,6 +11,8 @@ outputs within 5e-3, fine z samples within 2e-3, the loss within rtol 1e-3.
 bf16 operands round at other places in the two packages, hence the
 scale-relative gradient bar."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import json
 import os
 
@@ -42,13 +44,8 @@ from dfnet_tpu_torch.models import nerfw as tnerfw
 from dfnet_tpu_torch.models.embedder import get_embedder
 from dfnet_tpu_torch.models.factory import render_settings
 from dfnet_tpu_torch.ops import nerf_kernels as nk
-from dfnet_tpu_torch.render.fused_train import (
-    RawSweep,
-    fused_train_supported,
-    raw_sweep,
-    render_rays_train_fused,
-    train_ray_align,
-)
+from dfnet_tpu_torch.render.fast import kernels_serve
+from dfnet_tpu_torch.render.fused_train import RawSweep, raw_sweep, render_rays_train_fused
 from dfnet_tpu_torch.render.volume import render_rays
 from dfnet_tpu_torch.training.checkpoints import params_from_numpy
 from dfnet_tpu_torch.training.nerf_trainer import (
@@ -290,14 +287,13 @@ def runs(small):
         jft.ALLOW_INTERPRET_TRAIN = old
 
 
-def test_fused_train_supported_and_aligned(small):
-    assert train_ray_align(small["st"]) == 1
-    assert fused_train_supported(small["model"], small["st"], 1531)
+def test_kernels_serve_the_train_step(small):
+    assert kernels_serve(small["model"], small["st"], train=True)
     import dataclasses
 
     odd = dataclasses.replace(small["model"], cfg_fine=dataclasses.replace(
         small["model"].cfg_fine, W=192))
-    assert not fused_train_supported(odd, small["st"], 128)
+    assert not kernels_serve(odd, small["st"], train=True)
 
 
 def test_render_rays_train_fused_matches_jax(small):

@@ -12,6 +12,8 @@ leaf's largest magnitude on either side; JAX checks the non-proposal
 leaves, and the proposal's pass too). The mesh cases hold
 world 2 to world 1 as tests/test_torch_port_mesh.py does."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +36,9 @@ from dfnet_tpu_torch.models.factory import create_nerfh, render_settings
 from dfnet_tpu_torch.ops import nerf_kernels as nk
 from dfnet_tpu_torch.parallel import checks
 from dfnet_tpu_torch.parallel.mesh import Mesh, launch
-from dfnet_tpu_torch.render.fast import sample_pdf_culled
-from dfnet_tpu_torch.render.fused_train import fused_train_supported, render_rays_train_fused
-from dfnet_tpu_torch.render.sampling import RowShard
+from dfnet_tpu_torch.render.fast import kernels_serve
+from dfnet_tpu_torch.render.fused_train import render_rays_train_fused
+from dfnet_tpu_torch.render.sampling import RowShard, sample_pdf_culled
 from dfnet_tpu_torch.render.volume import render_rays
 from dfnet_tpu_torch.training.checkpoints import params_from_numpy
 from dfnet_tpu_torch.training.nerf_trainer import NeRFTrainer, named_leaves, stage1_loss
@@ -230,7 +232,7 @@ def _port_step(s, fused):
 def steps(request):
     """Both packages' plain and fused culled steps at nf, from JAX's init."""
     s = _setup(request.param)
-    assert fused_train_supported(s["model"], s["st"], s["ro"].shape[0])
+    assert kernels_serve(s["model"], s["st"], train=True)
     old = jft.ALLOW_INTERPRET_TRAIN
     jft.ALLOW_INTERPRET_TRAIN = True
     try:

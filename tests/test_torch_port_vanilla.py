@@ -14,6 +14,8 @@ runs (RENDER_BARS, STEP_FINE_GRAD).
 
 The CLIs are held in tests/test_torch_port_vanilla_cli.py."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,7 @@ from dfnet_tpu_torch.config import parse_args
 from dfnet_tpu_torch.data.synthetic import make_synthetic_scene
 from dfnet_tpu_torch.models import nerf_vanilla as nv
 from dfnet_tpu_torch.models.embedder import get_embedder
-from dfnet_tpu_torch.render import fast, fused_train
+from dfnet_tpu_torch.render import fast
 from dfnet_tpu_torch.render import volume as vol
 from dfnet_tpu_torch.render.sampling import sample_pdf
 from dfnet_tpu_torch.training import parity
@@ -229,28 +231,28 @@ def test_vanilla_render_agreement_runs_its_stages():
 
 
 def test_kernel_gates_refuse_the_vanilla_model():
-    """The kernel gates admit this pair (tests/test_torch_vanilla_kernel_route.py
-    holds that route) and refuse it outside the kernels' envelope, where the
+    """The kernel gate admits this pair (tests/test_torch_vanilla_kernel_route.py
+    holds that route) and refuses it outside the kernels' envelope, where the
     plain route above serves it: a skip into the heads, two skips, no
     viewdirs, a width off 32, a windowed PE, the culled schedules."""
     _, tm, _ = _models()
     st = vol.RenderSettings(N_samples=16, N_importance=16)
-    assert fast.fast_path_supported(tm, st.test())
-    assert fused_train.fused_train_supported(tm, st, 256)
+    assert fast.kernels_serve(tm, st.test())
+    assert fast.kernels_serve(tm, st, train=True)
     cfgs = [dict(skips=(3,)), dict(skips=(1, 2)), dict(use_viewdirs=False), dict(W=48)]
     for kw in cfgs:
         c = nv.VanillaNeRFConfig(**{**KW, **kw})
         m = vol.VanillaNeRFModel(c, c, tm.embed_xyz, tm.embed_dir)
-        assert not fast.fast_path_supported(m, st.test()), kw
-        assert not fused_train.fused_train_supported(m, st, 256), kw
+        assert not fast.kernels_serve(m, st.test()), kw
+        assert not fast.kernels_serve(m, st, train=True), kw
     windowed = vol.VanillaNeRFModel(tm.cfg_coarse, tm.cfg_fine, get_embedder(10, 0, 2, 100),
                                     tm.embed_dir)
-    assert not fast.fast_path_supported(windowed, st.test())
-    assert not fused_train.fused_train_supported(windowed, st, 256)
-    assert not fast.fast_path_supported(tm, st.test(), cull_q=2e-3)
+    assert not fast.kernels_serve(windowed, st.test())
+    assert not fast.kernels_serve(windowed, st, train=True)
+    assert not fast.kernels_serve(tm, st.test(), cull_q=2e-3)
     culled = vol.RenderSettings(N_samples=16, N_importance=16, train_cull_q=2e-3,
                                 train_fine_total=16)
-    assert not fused_train.fused_train_supported(tm, culled, 256)
+    assert not fast.kernels_serve(tm, culled, train=True)
 
 
 def test_render_image_dispatches_on_the_model():

@@ -7,6 +7,8 @@ vanilla NeRF (stage 3, a `.tar` load, render_fn_batch), where the port
 raises NotImplementedError instead. The models themselves are held in
 tests/test_torch_port_vanilla.py."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import contextlib
 import io
 import re

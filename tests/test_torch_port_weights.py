@@ -3,6 +3,8 @@ the trained assets round-trip bit-exact through
 load_pytree -> params_from_numpy -> params_to_numpy -> save_pytree and
 read back with dfnet_tpu's load_pytree."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@ sigma noise, float32 matmuls. Bars as in tests/test_torch_port_train.py:
 rendered rgb within 3e-2, the loss within rtol 1e-3, every grad within
 3e-2 * scale + 1e-7 (scale: the leaf's largest magnitude)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import functools
 
 import jax

@@ -13,6 +13,8 @@ JAX tests' sizes, and the bars are theirs: MobileNetV2 3e-4
 BatchNorm's updated running stats are held at 1e-6; the converters from
 torchvision-named state dicts bit for bit."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

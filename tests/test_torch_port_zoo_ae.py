@@ -4,6 +4,8 @@ sizes and bar, 1e-4 (tests/test_autoencoder_zoo.py:61), on the JAX
 package's params carried across with models/layers.py::params_from_jax;
 vgg_features_by_index at 1e-5; the JAX-layout bridge both ways."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

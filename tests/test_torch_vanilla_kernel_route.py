@@ -17,6 +17,8 @@ median leaf's reference norm (the train cell's measure), and the render's
 largest rgb gap and mean disparity gap over the mean disparity.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads under xdist)
+
 import statistics
 
 import numpy as np
