@@ -669,14 +669,17 @@ def kernel_build(name: str, spec, S: int) -> str:
     """For the log only, not measured: ptxas' register and spill lines of
     the kernel this width runs (<source>_kernel<NJ>: NJ output fragments a
     warp, 4 at W > 128, 2 at W > 64, and 2 at W <= 64 too but for the
-    sigma-only sweeps' 1) from the library's build log, and the blocks an
-    SM and shared bytes a block from the CUDA occupancy calculator (and the
-    rays a block, for fine_composite_t and proposal_z_rows)."""
+    sigma-only sweeps' 1; fine_raw_kernel<WP>: the padded width, 128 or
+    256) from the library's build log, and the blocks an SM and shared
+    bytes a block from the CUDA occupancy calculator (and the rays a block,
+    for fine_composite_t and proposal_z_rows)."""
     from dfnet_tpu_torch.ops import nerf_kernels as nk
 
     source = SWEEP_SOURCES[name]
     sigma_only = source in ("coarse_sigma", "proposal_z")
     nj = 4 if spec.W > 128 else (2 if spec.W > 64 or not sigma_only else 1)
+    if source == "fine_raw":
+        nj = 256 if spec.W > 128 else 128
     lines = ptxas_lines(source, source + rf"_kernelILi{nj}E")
     occ = {"fine_raw_t": lambda: nk.fine_raw_occupancy(spec.W, spec.F),
            "fine_composite_t": lambda: nk.fine_composite_occupancy(spec.W, spec.F, S),

@@ -14,9 +14,12 @@
 // tile of round16(R S) points, R = max(1, 64 / S); at S = 128 that was one
 // ray a 128-point block, and one thread ran the ray's whole composite
 // while 255 waited (2.6x fine_raw_t's time at that shape). Here:
-//   - the sweep is fine_raw_t's (sweep.cuh::fine_sweep over panel.cuh's
-//     layers), so a point's pre-activation outputs are fine_raw_t's, bit
-//     for bit;
+//   - the sweep is sweep.cuh::fine_sweep over panel.cuh's layers: the PE,
+//     k order, bias, dpt and ReLU of fine_raw_t's warpgroup kernel, so a
+//     point's trunk, dt and transient activations are fine_raw_t's bit for
+//     bit; the heads sum in another order, and a card test
+//     (test_fine_composite_kernel_matches_plain_shipped_depth) holds the
+//     composite to that of fine_raw_t's rows at 1e-5;
 //   - a block owns R whole rays (the wrapper's fine_composite_geometry
 //     chooses R; the entry point checks it) and runs their R S points
 //     through ceil(R S / 64) sub-tiles of 64 rows in turn, the dead rows

@@ -1,7 +1,7 @@
 // Hopper building blocks (sm_90a) of the port's warpgroup kernels: mbarriers,
 // TMA tensor loads, warpgroup MMA (wgmma) on 128-byte-swizzled operands, and
-// the host's tensor maps. mlp_stack.cu (the layer-stack probe) and raw_bwd.cu
-// (bwd_stash) run them.
+// the host's tensor maps. mlp_stack.cu (the layer-stack probe), raw_bwd.cu
+// (bwd_stash) and fine_raw.cu (fine_raw_t) run them.
 //
 // Operand layouts in shared memory, both under the 128-byte swizzle (16-byte
 // chunk k of the 128-byte row r lands at chunk k ^ (r % 8); tiles start
@@ -20,6 +20,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -156,6 +157,84 @@ __device__ inline void wgmma_bf16(float (&d)[M], uint64_t a, uint64_t b, int sca
                  : WG_R32(WG_OF, 0), WG_R32(WG_OF, 32), WG_R32(WG_OF, 64), WG_R32(WG_OF, 96)
                  : "l"(a), "l"(b), "r"(scale), "n"(TB));
   }
+}
+
+// ---- a consumer warpgroup's tiles in shared memory ------------------------
+// raw_bwd.cu (bwd_stash) and fine_raw.cu: 64-point tiles of bf16 columns
+// under the 128-byte swizzle, one 64-column block 8 KB.
+
+constexpr int WGT = 128;                 // threads a warpgroup
+constexpr int SWZ = 128;                 // bytes of a swizzled row
+constexpr int PBYTES = 64 * SWZ;         // 64 rows x 64 bf16: a tile's block, a TMA box
+
+// Named barrier 1 + c of consumer warpgroup c's 128 threads.
+__device__ __forceinline__ void csync(int c) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(WGT) : "memory");
+}
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Byte address of element (r, col) of a tile under the 128-byte swizzle.
+__device__ __forceinline__ uint32_t tile_at(uint32_t tile, int r, int col) {
+  return tile + (col >> 6) * PBYTES + r * SWZ + ((((col & 63) >> 3) ^ (r & 7)) << 4) +
+         (col & 7) * 2;
+}
+__device__ __forceinline__ uint4 lds16(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts16(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void sts_pair(uint32_t a, float v0, float v1) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a),
+               "r"(*reinterpret_cast<const uint32_t*>(&p))
+               : "memory");
+}
+__device__ __forceinline__ void sts_bf16(uint32_t a, __nv_bfloat16 v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a),
+               "h"(*reinterpret_cast<const unsigned short*>(&v))
+               : "memory");
+}
+
+// bf16 halves of a 32-bit pair, as float; a float pair rounded to bf16
+__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+__device__ __forceinline__ uint32_t bf_pack(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// A generic pointer to the dynamic shared memory at shared address a.
+template <typename T>
+__device__ __forceinline__ T* sptr(uint32_t a) {
+  extern __shared__ unsigned char smem_raw[];
+  return reinterpret_cast<T*>(smem_raw + (a - smem_u32(smem_raw)));
+}
+
+// Consumer warpgroups a persistent block takes for `tiles` 64-point tiles
+// over `sms` SMs, at most `most`: the fewest rounds of blocks, a block
+// costing its consumers plus one (its fixed latencies); ties to more
+// consumers.
+inline int consumers_for(long long tiles, int sms, int most) {
+  int ncw = 1;
+  long long best = -1;
+  for (int k = 1; k <= most; ++k) {
+    const long long blocks = (tiles + k - 1) / k;
+    const long long cost = (blocks + sms - 1) / sms * (k + 1);
+    if (best < 0 || cost <= best) {
+      best = cost;
+      ncw = k;
+    }
+  }
+  return ncw;
 }
 
 // ---- host side: tensor maps -----------------------------------------------

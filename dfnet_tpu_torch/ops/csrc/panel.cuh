@@ -1,10 +1,12 @@
 // Weight panels (sm_90a): one dense layer's product over a tile of points,
 // the layer's weights streamed through shared memory, and the tile's PE.
-// The forward sweep's layer code (sweep.cuh: fine_raw.cu, fine_composite.cu,
-// coarse_sigma.cu and proposal_z.cu). raw_bwd.cu's bwd_stash recomputes the
-// same forward on warpgroup MMA with the same k order, bias, dpt and ReLU;
-// tests/test_torch_port_gpu.py holds its trunk activations to the sweep's bit
-// for bit, so the backward's ReLU masks are the forward's.
+// The WMMA sweep's layer code (sweep.cuh: fine_composite.cu, coarse_sigma.cu
+// and proposal_z.cu). fine_raw.cu (fine_raw_t) and raw_bwd.cu's bwd_stash
+// run the same forward on warpgroup MMA with the same PE, k order, bias,
+// dpt and ReLU, and take relu_nan, the packed offsets and the PE's
+// arithmetic from here; tests/test_torch_port_gpu.py holds bwd_stash's trunk
+// activations to fine_raw_t's bit for bit, so the backward's ReLU masks are
+// the forward's.
 //
 // The whole fine net (~0.32 MB bf16 at W=128, D=8) does not fit in a
 // block's shared memory, so each layer's weights pass through two panels

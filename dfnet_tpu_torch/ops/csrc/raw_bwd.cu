@@ -88,9 +88,10 @@
 //     cores;
 //   - the heads (at most 9 rows) stay on the CUDA cores, 8 columns a thread;
 //   - setmaxnreg gives the producer 40 registers and the consumers the rest.
-// The same k order, bias, dpt and ReLU as fine_raw_t's sweep (panel.cuh), so
-// the trunk activations, and the whole stash, are fine_raw_t's and the
-// first version's bit for bit (tests/test_torch_port_gpu.py).
+// The same k order, bias, dpt and ReLU as fine_raw_t's kernel (fine_raw.cu,
+// the forward half of this design) and the WMMA sweep (panel.cuh), so the
+// trunk activations, and the whole stash, are fine_raw_t's and the first
+// version's bit for bit (tests/test_torch_port_gpu.py).
 // Measured and not kept (PERF.md, Findings): the stash written by TMA
 // stores from the tiles (5% faster at W = 128, 13-16% slower at W = 256,
 // where those stores share the SM's TMA unit with the weight loads and the
@@ -132,9 +133,6 @@ __host__ __device__ inline int R_GRAW(int D) { return 9 + 2 * D; }
 // 1. bwd_stash
 // ---------------------------------------------------------------------------
 
-constexpr int WGT = 128;                 // threads a warpgroup
-constexpr int SWZ = 128;                 // bytes of a swizzled row
-constexpr int PBYTES = BTP * SWZ;        // 64 rows x 64 bf16: a tile's block, a TMA box
 constexpr int SMEM_LIMIT = 232448;       // shared bytes a block may have, static and dynamic
 constexpr int ALIGN = 1024;              // the 128-byte swizzle repeats every 8 rows
 constexpr int MAX_STAGES = 8;
@@ -287,56 +285,6 @@ struct StashGeo {
   static constexpr int CONSUMER_REGS = SHARE > 232 ? 232 : SHARE;
 };
 
-__device__ __forceinline__ void csync(int c) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(WGT) : "memory");
-}
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Byte address of element (r, col) of a tile under the 128-byte swizzle.
-__device__ __forceinline__ uint32_t tile_at(uint32_t tile, int r, int col) {
-  return tile + (col >> 6) * PBYTES + r * SWZ + ((((col & 63) >> 3) ^ (r & 7)) << 4) +
-         (col & 7) * 2;
-}
-__device__ __forceinline__ uint4 lds16(uint32_t a) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(a)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void sts16(uint32_t a, uint4 v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-__device__ __forceinline__ void sts_pair(uint32_t a, float v0, float v1) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a),
-               "r"(*reinterpret_cast<const uint32_t*>(&p))
-               : "memory");
-}
-__device__ __forceinline__ void sts_bf16(uint32_t a, bf16 v) {
-  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a),
-               "h"(*reinterpret_cast<const unsigned short*>(&v))
-               : "memory");
-}
-
-// bf16 halves of a 32-bit pair, as float; a float pair rounded to bf16
-__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
-__device__ __forceinline__ uint32_t bf_pack(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// A generic pointer to the dynamic shared memory at shared address a.
-template <typename T>
-__device__ __forceinline__ T* sptr(uint32_t a) {
-  extern __shared__ unsigned char smem_raw[];
-  return reinterpret_cast<T*>(smem_raw + (a - smem_u32(smem_raw)));
-}
 // Consumer c's tiles, its g (float, G_RAW a row), points, z and rays.
 __device__ __forceinline__ uint32_t tile_of(int c, int id) {
   return blk.base + c * blk.L.tile_bytes +
@@ -761,17 +709,7 @@ int launch_stash(StashArgs& a, cudaStream_t stream) {
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const int tiles64 = (a.N * a.S + BTP - 1) / BTP;
-  // the fewest rounds of blocks over the SMs, a block costing its
-  // consumers plus one (its fixed latencies); ties to more consumers
-  int ncw = 1, best = -1;
-  for (int k = 1; k <= G::NCW; ++k) {
-    const int blocks = (tiles64 + k - 1) / k;
-    const int cost = (blocks + sms - 1) / sms * (k + 1);
-    if (best < 0 || cost <= best) {
-      best = cost;
-      ncw = k;
-    }
-  }
+  const int ncw = consumers_for(tiles64, sms, G::NCW);
   int stages = 0;
   for (int st = MAX_STAGES; st >= 2 && !stages; --st)
     if (stash_layout(a.dm.K0, a.dm.W, a.stat, ncw, st, WP).total <= DYN_LIMIT) stages = st;

@@ -1,10 +1,14 @@
 // The sweep of a 64-point tile through a NeRF-H MLP (sm_90a), over
 // panel.cuh's layer code: the PE and the trunk, then either the NeRF-W
 // tail (fine_sweep: the dt layer, the transient chain and the heads) or
-// the sigma head alone (sigma_sweep). fine_raw.cu and fine_composite.cu
-// run fine_sweep; coarse_sigma.cu runs sigma_sweep. A row's products do
+// the sigma head alone (sigma_sweep). fine_composite.cu runs fine_sweep;
+// coarse_sigma.cu and proposal_z.cu run sigma_sweep. A row's products do
 // not depend on the other rows of its tile, so two kernels that run a
-// point through one sweep give it the same bits.
+// point through one sweep give it the same bits. fine_raw_t no longer
+// runs fine_sweep: fine_raw.cu is a warpgroup kernel of its own (wgmma fed
+// by a TMA weight ring), with the same PE, k order, bias, dpt and ReLU, so
+// its trunk, dt and transient activations are fine_sweep's bit for bit;
+// its heads sum in another order.
 //
 // Shared memory a block (fwd_layout): x0, two activation tiles, two weight
 // panels, the epilogue scratch, a 16-row head matrix, the head-output

@@ -763,6 +763,12 @@ def _check_aligned16(name: str, *tensors: torch.Tensor):
                          "they must start 16-byte aligned")
 
 
+def _check_tma(name: str, w: torch.Tensor):
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name} loads the packed weights by TMA: they must start "
+                         "16-byte aligned")
+
+
 def _check_width(name: str, spec: KernelSpec):
     if spec.W > 256:
         raise ValueError(f"{name} takes W <= 256: {spec}")
@@ -851,6 +857,7 @@ def fine_raw_t(packed: Dict, rays_o, rays_d, z_all, dpt,
     out = torch.empty((spec.n_raw, N, S), device=rays_o.device, dtype=torch.float32)
     args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
     _check_aligned16("fine_raw_t", dpt, packed["b"])
+    _check_tma("fine_raw_t", packed["w"])
     if N == 0:
         return out
     rc = build.load("fine_raw")(*args, int(spec.static), out.data_ptr(), _stream(out))
@@ -861,7 +868,8 @@ def fine_raw_t(packed: Dict, rays_o, rays_d, z_all, dpt,
 
 def fine_raw_occupancy(W: int, F: int) -> Tuple[int, int]:
     """(blocks an SM, shared memory bytes a block) of the fine_raw_t
-    kernel that width W runs, from the CUDA occupancy calculator."""
+    kernel that width W runs, its fine pack at the most consumer warpgroups
+    (the block a large sweep takes), from the CUDA occupancy calculator."""
     return _occupancy("fine_raw", W, F)
 
 
@@ -1026,9 +1034,7 @@ def raw_bwd_launches(packed: Dict, rays_o, rays_d, z_all, dpt, g, spec: KernelSp
     args = _fine_args(packed, spec, rays_o, rays_d, z_all, dpt)
     _check("g", g, (spec.n_raw, N, S), torch.float32, dev)
     _check_aligned16("raw_bwd_t", dpt, packed["b"])
-    if packed["w"].data_ptr() % 16:
-        raise ValueError("raw_bwd_t loads the packed weights by TMA: they must start "
-                         "16-byte aligned")
+    _check_tma("raw_bwd_t", packed["w"])
     d_w = torch.empty_like(packed["w"])
     d_b = torch.empty_like(packed["b"])
     d_dpt = torch.empty((N, spec.Wd), device=dev, dtype=torch.float32)

@@ -183,10 +183,38 @@ def test_fine_raw_kernel_matches_plain_shipped_depth(cuda, W, static, S):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N,S,W,static", [
+    (19200, 128, 128, False),    # nerfh_w128.render_exact: a view in one chunk
+    (4096, 192, 256, True),      # nerf_vanilla.train: the fine net's static sweep
+    (19200, 24, 128, False),     # nerfh_w128.render_culled
+    (19201, 24, 128, False),     # the same with a ragged last tile and spare consumers
+])
+def test_fine_raw_kernel_matches_plain_at_the_cells_shapes(cuda, N, S, W, static):
+    """fine_raw_t at the benchmark cells' sweep shapes (D=8 skip 4), where
+    each persistent block walks many rounds of tiles: against fine_raw_plain
+    under the FLIP_SHARE rule at TOL_RAW, one launch counted, and a second
+    call gives the same bits."""
+    packed, spec, ro, rd, z, dpt, _ = _sweep_inputs(8, W, 4, static, N, S, cuda, N + S)
+    args = (packed, ro, rd, z, dpt, spec)
+    nk.reset_launches()
+    got = nk.fine_raw_t(*args)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["fine_raw_t"] == 1
+    assert got.shape == (spec.n_raw, N, S)
+    _flip_close(got, nk.fine_raw_plain(*args), TOL_RAW)
+    assert torch.equal(got, nk.fine_raw_t(*args))
+
+
+@pytest.mark.gpu
 def test_fine_raw_kernel_occupancy_and_width_limit(cuda):
-    """Two blocks an SM at W <= 128, one at W = 256; a wider net raises."""
-    assert nk.fine_raw_occupancy(128, 10)[0] == 2
-    assert nk.fine_raw_occupancy(256, 10)[0] == 1
+    """One persistent block an SM at W <= 128 and at W = 256, its shared
+    memory past the fine pack's consumer tiles (four of 32 KB at W=128, two
+    of 56 KB at W=256) by at least two weight-ring stages; a wider net
+    raises."""
+    for W, tiles, stage in ((128, 4 * 32 * 1024, 16 * 1024), (256, 2 * 56 * 1024, 32 * 1024)):
+        blocks, smem = nk.fine_raw_occupancy(W, 10)
+        assert blocks == 1, W
+        assert tiles + 2 * stage < smem <= 227 * 1024, (W, smem)
     packed, spec, ro, rd, z, dpt, _ = _sweep_inputs(2, 64, 1, False, 4, 8, cuda, 0)
     wide = nk.KernelSpec(D=2, W=288, skip=1, F=10, fine=True)
     with pytest.raises(ValueError, match="W <= 256"):
@@ -200,9 +228,10 @@ def test_fine_composite_kernel_matches_plain_shipped_depth(cuda, W, S):
     """fine_composite_t at D=8 skip 4, F=10 (the shipped fine net), 37 rays
     (a ragged last block at every R): against fine_composite_plain under
     the FLIP_SHARE rule at TOL_COMP; against _composite_plain of
-    fine_raw_t's rows on the card at 1e-5 (the same sweep, bit for bit, so
-    only the composite's order differs); one launch counted; a second call
-    gives the same bits."""
+    fine_raw_t's rows on the card at 1e-5 (the same trunk, dt and transient
+    activations, bit for bit, so only the heads' and the composite's sums
+    run in another order); one launch counted; a second call gives the same
+    bits."""
     packed, spec, ro, rd, z, dpt, _ = _sweep_inputs(8, W, 4, False, 37, S, cuda, W + S + 1)
     args = (packed, ro, rd, z, dpt, spec)
     nk.reset_launches()
@@ -479,16 +508,18 @@ def _probe_pack(packed, spec, depth, cols):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,W,skip,S,static", [(8, 128, 4, 12, False), (8, 128, 4, 64, True),
-                                               (8, 256, 5, 64, True), (2, 256, 1, 24, False)])
-def test_raw_bwd_stash_trunk_matches_the_forward_sweep(cuda, D, W, skip, S, static):
+@pytest.mark.parametrize("D,W,skip,S,static,N", [
+    (8, 128, 4, 12, False, 37), (8, 128, 4, 64, True, 37), (8, 256, 5, 64, True, 37),
+    (2, 256, 1, 24, False, 37),
+    (4, 128, 2, 64, False, 600),   # 600 tiles: both kernels' blocks walk a second round
+])
+def test_raw_bwd_stash_trunk_matches_the_forward_sweep(cuda, D, W, skip, S, static, N):
     """The trunk activations bwd_stash recomputes (h0 .. h{D-1}) against those
     fine_raw_t computes on the same points, bit for bit: the backward's ReLU
     masks are the forward's. fine_raw_t runs the net cut after each layer,
     with a tail that copies that layer's activations to its outputs
     (_probe_pack; 4 columns a launch on the static pack, 9 on the fine). The
     share of activations that differ is held at zero."""
-    N = 37
     packed, spec, ro, rd, z, dpt, g = _sweep_inputs(D, W, skip, static, N, S, cuda, 11)
     launches, _, stash = nk.raw_bwd_launches(packed, ro, rd, z, dpt, g, spec)
     dict(launches)["stash"]()
